@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Accuracy gate for the d_head>=32 serving variants (H8 vs H4 vs H2).
 
-The measured round-1 attribution (docs/BENCHMARKS.md) says the serving wall
-is the per-head score-tensor work; d_head = d_model/n_head >= 32 shrinks it
-2-4x. This script answers "does H=8 -> H=4/H=2 cost accuracy?" with enough
+Attention at d_head 16 spends its time on per-head score-tensor work;
+d_head = d_model/n_head >= 32 shrinks it 2-4x. This script answers "does H=8 -> H=4/H=2 cost accuracy?" with enough
 statistical power to mean something (the round-2 judge flagged the 3-seed
 2-layer gate as underpowered):
 
@@ -16,9 +15,8 @@ statistical power to mean something (the round-2 judge flagged the 3-seed
 Usage:
   python scripts/head_variant_validation.py [epochs] [frames_per_class] \
       [comma-separated seeds] [numerics]
-Defaults: 30 epochs, 512 frames/class, seeds 0..9, numerics=tpu when the
-backend is TPU (fused train kernels — gating the PRODUCTION path) else
-reference. Writes head_variant_validation.json.
+Defaults: 30 epochs, 512 frames/class, seeds 0..9, numerics=tpu (the bf16
+production path) on an accelerator, else reference. Writes head_variant_validation.json.
 """
 import json
 import pathlib
@@ -43,7 +41,7 @@ def main() -> int:
     seeds = [int(s) for s in (sys.argv[3].split(",") if len(sys.argv) > 3
                               else [str(i) for i in range(10)])]
     numerics = (sys.argv[4] if len(sys.argv) > 4
-                else ("tpu" if jax.default_backend() == "tpu" else "reference"))
+                else ("tpu" if jax.default_backend() != "cpu" else "reference"))
 
     classes = TARGET_MODULATIONS_19
     # WEDGE RESILIENCE: every completed run appends one line to the JSONL

@@ -4,12 +4,10 @@
 The reference's rawIQ head supports both poolings behind one flag
 (transformer_rawIQ/models/transformer_rawIQ.py:88-93, USE_CLS_TOKEN);
 every published reference checkpoint used CLS. Mean-pool matters for
-TPU serving because dropping the CLS row lands the token count ON the
-16-sublane boundary (seg-64: 17 -> 16 tokens, Lp 32 -> 16 — HALF the
-kernel-real MXU cost of every stack GEMM; pass-arithmetic ceiling 2.82M
-frames/s, scripts/pass_roofline.py). This gate supplies the accuracy
-evidence for that serving geometry with the same paired-seed protocol as
-the head-variant gates.
+serving because dropping the CLS row makes the token count a power of two
+(seg-64: 17 -> 16 tokens), the tile the attention kernel works in. This
+gate supplies the accuracy evidence for that serving geometry with the
+same paired-seed protocol as the head-variant gates.
 
 Usage:
   python scripts/pool_gate.py [epochs] [frames_per_class] \
@@ -41,7 +39,7 @@ def main() -> int:
     seeds = [int(s) for s in (sys.argv[3].split(",") if len(sys.argv) > 3
                               else [str(i) for i in range(5)])]
     numerics = (sys.argv[4] if len(sys.argv) > 4
-                else ("tpu" if jax.default_backend() == "tpu" else "reference"))
+                else ("tpu" if jax.default_backend() != "cpu" else "reference"))
     segment_size = int(sys.argv[5]) if len(sys.argv) > 5 else 64
 
     classes = TARGET_MODULATIONS_19

@@ -12,7 +12,7 @@ script trees + compare_models.py.
 Usage: python scripts/proxy_head_to_head.py [epochs] [frames_per_class] \
     [numerics] [classes] [channel] [tag]
 Defaults: 100 epochs (early stop governs), 2048 frames/class, numerics=tpu
-on TPU else reference, classes=19 (24 = the full RadioML 2018.01A list
+(bf16) on an accelerator else reference, classes=19 (24 = the full RadioML 2018.01A list
 incl. the analog AM/FM families, ref: ViT/training/evaluate.py:69-74),
 channel=none ('imp' = the 2018.01A-style impairment chain —
 vitiq.data.synthetic.ChannelModel; VERDICT r3 item 1 — with artifacts
@@ -43,7 +43,7 @@ def main() -> int:
     epochs = int(sys.argv[1]) if len(sys.argv) > 1 else 100
     frames = int(sys.argv[2]) if len(sys.argv) > 2 else 2048
     numerics = (sys.argv[3] if len(sys.argv) > 3
-                else ("tpu" if jax.default_backend() == "tpu" else "reference"))
+                else ("tpu" if jax.default_backend() != "cpu" else "reference"))
     n_classes = int(sys.argv[4]) if len(sys.argv) > 4 else 19
     channel = sys.argv[5] if len(sys.argv) > 5 else "none"
 

@@ -33,7 +33,7 @@ def main() -> int:
     epochs = int(sys.argv[1]) if len(sys.argv) > 1 else 100
     frames = int(sys.argv[2]) if len(sys.argv) > 2 else 2048
     numerics = (sys.argv[3] if len(sys.argv) > 3
-                else ("tpu" if jax.default_backend() == "tpu" else "reference"))
+                else ("tpu" if jax.default_backend() != "cpu" else "reference"))
 
     out_root = pathlib.Path("result/proxy2016")
     cfg = ExperimentConfig.vit_tiny_2016(**{

@@ -2,8 +2,8 @@
 """Accuracy gate for the d_head>=32 variants on the RAW-IQ arm.
 
 Companion to scripts/head_variant_validation.py (which gates the ViT arm at
-10 seeds / full depth): the round-3f conv1d attribution showed the head
-lever moves the 1025-token arm most of all (H2 2.78x serving), but the
+10 seeds / full depth): the head lever matters most on the 1025-token
+arm, where attention dominates, but the
 existing gate only certifies the shared encoder under the ViT tokenization.
 This script runs the same paired-seed protocol on the rawIQ arm — default
 embedding is conv1d (the arm the serving win targets; ref:
@@ -20,8 +20,8 @@ Usage:
       [comma-separated seeds] [numerics] [embedding] [segment_size]
 Defaults: 15 epochs, 256 frames/class, seeds 0..4, numerics auto,
 embedding=conv1d. Writes rawiq_head_validation.json; per-run ledger
-rawiq_head_runs.jsonl makes restarts skip completed runs (relay-wedge
-resilience, same pattern as the primary gate).
+rawiq_head_runs.jsonl makes restarts skip completed runs (same pattern
+as the primary gate).
 """
 import json
 import pathlib
@@ -46,7 +46,7 @@ def main() -> int:
     seeds = [int(s) for s in (sys.argv[3].split(",") if len(sys.argv) > 3
                               else [str(i) for i in range(5)])]
     numerics = (sys.argv[4] if len(sys.argv) > 4
-                else ("tpu" if jax.default_backend() == "tpu" else "reference"))
+                else ("tpu" if jax.default_backend() != "cpu" else "reference"))
     embedding = sys.argv[5] if len(sys.argv) > 5 else "conv1d"
     segment_size = int(sys.argv[6]) if len(sys.argv) > 6 else 16
 

@@ -31,7 +31,7 @@ def main() -> int:
         rp = root / d / "evaluation" / "test_classification_report.txt"
         if not rp.exists():
             print(f"missing {rp} — train/evaluate the {arm} arm first "
-                  f"(scripts/refscale_train_device.py)")
+                  f"(vitiq train --source hdf5 --streaming --experiment_name {d})")
             return 1
         reports[arm] = rp
 

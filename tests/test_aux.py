@@ -174,13 +174,48 @@ class TestAttentionMaps:
 
 
 class TestCompileCache:
-    def test_enables_and_creates_dir(self, tmp_path, monkeypatch):
-        from vitiq.utils.compile_cache import enable_persistent_compilation_cache
+    """Placement: JAX_COMPILATION_CACHE_DIR when set (left to JAX), else the
+    fixed <repo root>/.jax_cache."""
 
-        monkeypatch.setenv("VITIQ_COMPILE_CACHE", str(tmp_path / "cc"))
-        enable_persistent_compilation_cache()
+    @pytest.fixture(autouse=True)
+    def _restore_config(self):
+        names = ("jax_compilation_cache_dir",
+                 "jax_persistent_cache_min_compile_time_secs",
+                 "jax_persistent_cache_min_entry_size_bytes")
+        saved = {n: getattr(jax.config, n) for n in names}
+        yield
+        for n, v in saved.items():
+            jax.config.update(n, v)
+
+    def test_enables_and_creates_dir(self, tmp_path, monkeypatch):
+        from vitiq.utils import compile_cache as cc
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.setattr(cc, "DEFAULT_DIR", tmp_path / "cc")
+        cc.enable_persistent_compilation_cache()
         assert (tmp_path / "cc").is_dir()
         assert jax.config.jax_compilation_cache_dir == str(tmp_path / "cc")
+
+    def test_default_is_fixed_repo_path(self, monkeypatch):
+        from pathlib import Path
+
+        from vitiq.utils import compile_cache as cc
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        repo = Path(__file__).resolve().parents[1]
+        assert cc.cache_dir() == str(repo / ".jax_cache")
+
+    def test_env_dir_left_to_jax(self, tmp_path, monkeypatch):
+        from vitiq.utils import compile_cache as cc
+
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+        monkeypatch.setattr(cc, "DEFAULT_DIR", tmp_path / "default")
+        before = jax.config.jax_compilation_cache_dir
+        assert cc.cache_dir() is None
+        cc.enable_persistent_compilation_cache()
+        assert jax.config.jax_compilation_cache_dir == before
+        assert not (tmp_path / "default").exists()
+        assert jax.config.jax_persistent_cache_min_compile_time_secs == 1.0
 
 
 class TestEvalConfigFallback:

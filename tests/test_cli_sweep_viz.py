@@ -279,8 +279,8 @@ def test_decode_particle_bucketing():
 
 def test_fitness_memoizes_compiles_per_architecture():
     """Re-evaluating particles that decode to the same architecture (or that
-    differ only in learning rate) must not grow the compile cache — the TPU
-    viability property (VERDICT r1 item 7)."""
+    differ only in learning rate) must not grow the compile cache — what
+    keeps a sweep affordable on an accelerator (VERDICT r1 item 7)."""
     from vitiq.data import SyntheticAMCDataset
     from vitiq.sweep import make_amc_fitness
 
@@ -349,17 +349,18 @@ def test_pso_resume_reproduces_trajectory():
 
 
 def test_bench_slope_timing_diagnostics():
-    """Round 5: the fori-slope timing path must expose its self-diagnostics
-    (timing_method, overhead, chosen depth) and the RTT probe must return
-    sane values — these keys are how a weather-contaminated driver capture
-    is detected post-hoc (VERDICT r4 item 1)."""
-    from vitiq.bench import bench_fused_infer, measure_dispatch_rtt
+    """The fori-slope timing path exposes its self-diagnostics
+    (timing_method, overhead, chosen depth), and every result names the
+    device it was measured on."""
+    import jax
+
+    from vitiq.bench import bench_fused_infer
 
     r = bench_fused_infer("rawiq_seg64_mp", batch_size=16, steps=2)
     assert r["timing_method"] == "fori-slope"
     assert r["k_big"] >= 3
     assert r["overhead_p50_ms"] >= 0.0
     assert r["value"] > 0
-
-    rtt = measure_dispatch_rtt(3)
-    assert rtt["min_ms"] > 0 and rtt["p50_ms"] >= rtt["min_ms"]
+    d = jax.devices()[0]
+    assert (r["platform"], r["device_kind"], r["device_count"]) == (
+        d.platform, d.device_kind, len(jax.devices()))

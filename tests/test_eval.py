@@ -208,12 +208,175 @@ def test_bench_fused_infer_sharded_runs():
 
 
 def test_bench_n_head_reaches_all_arms():
-    """The d_head lever is measurable on every arm (round-3f: it moves the
-    1025-token conv1d arm most — 2.78x); n_head must reach the rawiq
-    entries, not just head_variant."""
+    """The d_head lever is measurable on every arm (it matters most on the
+    1025-token conv1d arm); n_head must reach the rawiq entries, not just
+    head_variant."""
     from vitiq.bench import run_benchmarks
 
     r = run_benchmarks("conv1d_infer", batch_size=4, steps=1, n_head=2)
     assert r["metric"].endswith("rawiq_conv1d_h2") and r["value"] > 0
     r = run_benchmarks("rawiq64_infer", batch_size=4, steps=1, n_head=4)
     assert r["metric"].endswith("rawiq_seg64_h4") and r["value"] > 0
+
+
+# --------------------------------------------------------------------------
+# numpy report + confusion matrix, with sklearn as the golden
+# --------------------------------------------------------------------------
+
+_CLASSES = ["OOK", "4ASK", "8ASK", "BPSK", "QPSK", "8PSK", "16PSK", "32PSK",
+            "16APSK", "32APSK", "64APSK", "128APSK", "16QAM", "32QAM",
+            "64QAM", "128QAM", "256QAM", "AM-SSB-WC", "AM-DSB-SC", "FM",
+            "GMSK", "OQPSK", "CPFSK", "GFSK"]
+
+
+def _case(name):
+    """(labels, preds, class_names) for one golden scenario."""
+    rng = np.random.default_rng(abs(hash(name)) % 2**32)
+    if name == "balanced19":
+        y = np.repeat(np.arange(19), 20)
+        p = np.where(rng.random(y.size) < 0.6, y, rng.integers(0, 19, y.size))
+        return y, p, _CLASSES[:19]
+    if name == "absent_true_class":      # class 2 never in the labels
+        y = rng.integers(0, 5, 200)
+        y[y == 2] = 0
+        return y, rng.integers(0, 5, 200), _CLASSES[:5]
+    if name == "never_predicted":        # zero division in precision
+        y = rng.integers(0, 5, 200)
+        p = y.copy()
+        p[p == 3] = 1
+        return y, p, _CLASSES[:5]
+    if name == "all_correct":
+        y = rng.integers(0, 11, 300)
+        return y, y.copy(), _CLASSES[:11]
+    if name == "all_wrong":
+        y = rng.integers(0, 4, 50)
+        return y, (y + 1) % 4, _CLASSES[:4]
+    if name == "single_sample":
+        return np.array([2]), np.array([1]), _CLASSES[:3]
+    if name == "hyphenated_24":
+        y = rng.integers(0, 24, 500)
+        p = np.where(rng.random(500) < 0.3, y, rng.integers(0, 24, 500))
+        return y, p, _CLASSES
+    if name == "binary":
+        y = rng.integers(0, 2, 64)
+        return y, rng.integers(0, 2, 64), ["BPSK", "QPSK"]
+    if name == "one_class_seen":         # only class 0 in labels and preds
+        return np.zeros(10, int), np.zeros(10, int), _CLASSES[:6]
+    raise KeyError(name)
+
+
+_CASES = ["balanced19", "absent_true_class", "never_predicted", "all_correct",
+          "all_wrong", "single_sample", "hyphenated_24", "binary",
+          "one_class_seen"]
+
+
+class TestNumpyReport:
+    @pytest.mark.parametrize("digits", [2, 3, 4])
+    @pytest.mark.parametrize("case", _CASES)
+    def test_text_matches_sklearn(self, case, digits):
+        import warnings
+
+        from sklearn.metrics import classification_report
+
+        from vitiq.eval.report import classification_report_text
+
+        y, p, names = _case(case)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want = classification_report(y, p, labels=np.arange(len(names)),
+                                         target_names=names, digits=digits,
+                                         zero_division=0)
+        assert classification_report_text(y, p, names, digits=digits) == want
+
+    @pytest.mark.parametrize("case", _CASES)
+    def test_confusion_matrix_matches_sklearn(self, case):
+        import warnings
+
+        from sklearn.metrics import confusion_matrix as sk_cm
+
+        from vitiq.eval.report import confusion_matrix
+
+        y, p, names = _case(case)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want = sk_cm(y, p, labels=np.arange(len(names)))
+        got = confusion_matrix(y, p, len(names))
+        assert got.shape == (len(names), len(names))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_figures_skipped_without_matplotlib(tmp_path, monkeypatch, capsys):
+    from vitiq.eval import confusion_artifacts, plots
+
+    monkeypatch.setattr(plots, "plotting_available", lambda: False)
+    labels, preds = np.array([0, 1, 2, 1]), np.array([0, 1, 1, 1])
+    res = confusion_artifacts(preds, labels, np.array([0, 0, 8, 8]),
+                              ["A", "B", "C"], tmp_path, verbose=False)
+    assert "matplotlib is not installed" in capsys.readouterr().out
+    assert not list(tmp_path.glob("*.png"))
+    assert (tmp_path / "test_classification_report.txt").exists()
+    np.testing.assert_array_equal(res["confusion_matrix"],
+                                  [[1, 0, 0], [0, 2, 0], [0, 1, 0]])
+
+
+_BLOCKED_IMPORTS = """
+import importlib.abc, sys
+BLOCKED = {"sklearn", "matplotlib", "seaborn", "pandas", "h5py", "torch",
+           "orbax", "flatbuffers"}
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+"""
+
+
+def test_main_path_imports_only_core_packages(tmp_path):
+    """train -> evaluate -> export -> serve on the synthetic source needs
+    nothing outside JAX, numpy, scipy, optax, chex and einops (matplotlib
+    only for the optional figures): run it with the others made
+    unimportable."""
+    import subprocess
+    import sys
+    import textwrap
+
+    repo = Path(__file__).resolve().parents[1]
+    script = _BLOCKED_IMPORTS + textwrap.dedent(f"""
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+        from vitiq.cli import main
+        tiny = ["--n_layers", "1", "--d_model", "16", "--n_head", "2",
+                "--ffn_hidden", "32", "--batch_size", "16"]
+        exp = "result/checkpoints/iso"
+        assert main(["train", "--preset", "rawiq_synthetic19", "--numerics",
+                     "tpu", "--frames_per_class", "4", "--num_epochs", "1",
+                     "--experiment_name", "iso"] + tiny) == 0
+        assert main(["evaluate", "--checkpoint", exp]) == 0
+        assert main(["export", "--experiment_dir", exp, "--output", "art",
+                     "--batch_sizes", "8"]) == 0
+        import numpy as np
+        from vitiq.serve import ServingArtifact
+        logits = ServingArtifact.load("art").run(np.zeros((3, 1024, 2), np.float32))
+        assert logits.shape == (3, 19)
+        print("MAIN PATH OK")
+    """)
+    env = {**__import__("os").environ, "PYTHONPATH": str(repo),
+           "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
+                         capture_output=True, text=True, env=env, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "MAIN PATH OK" in out.stdout
+    assert "matplotlib is not installed" in out.stdout
+
+
+def test_confusion_plot_with_empty_rows(tmp_path):
+    """A class with no samples leaves an all-zero row: the normalized
+    heatmap must stay finite (it feeds the colour scale and tick layout)."""
+    from vitiq.eval import plots
+
+    if not plots.plotting_available():
+        pytest.skip("matplotlib is not installed")
+    cm = np.array([[3, 1, 0], [0, 0, 0], [0, 2, 5]])
+    out = tmp_path / "cm.png"
+    plots.plot_confusion_matrix(cm, ["A", "B", "C"], 8 / 11, save_path=out)
+    assert out.exists() and out.stat().st_size > 0

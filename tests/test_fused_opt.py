@@ -26,15 +26,23 @@ def _tree(seed, scale=1.0):
     }
 
 
+def _optax_chain(cfg):
+    """The per-leaf optax chain the fused form replaces (the reference)."""
+    return optax.inject_hyperparams(lambda learning_rate: optax.chain(
+        optax.clip_by_global_norm(cfg.grad_clip_max_norm),
+        optax.adamw(learning_rate=learning_rate, b1=cfg.adam_b1,
+                    b2=cfg.adam_b2, eps=cfg.adam_eps,
+                    weight_decay=cfg.weight_decay)))(
+        learning_rate=cfg.learning_rate)
+
+
 @pytest.mark.parametrize("gscale", [0.01, 50.0])  # below / above the clip norm
-def test_fused_matches_optax_chain(monkeypatch, gscale):
+def test_fused_matches_optax_chain(gscale):
     cfg = TrainConfig(learning_rate=3e-3, weight_decay=1e-2)
     params = _tree(0)
 
     trajectories = []
-    for fused in ("1", "0"):
-        monkeypatch.setenv("VITIQ_FUSED_OPT", fused)
-        tx = make_optimizer(cfg)
+    for tx in (make_optimizer(cfg), _optax_chain(cfg)):
         p = params
         st = tx.init(p)
         steps = []
@@ -51,8 +59,7 @@ def test_fused_matches_optax_chain(monkeypatch, gscale):
                                    atol=1e-6, rtol=1e-5)
 
 
-def test_injected_lr_interface(monkeypatch):
-    monkeypatch.setenv("VITIQ_FUSED_OPT", "1")
+def test_injected_lr_interface():
     cfg = TrainConfig(learning_rate=1e-4)
     state = create_train_state(_tree(1), cfg)
     assert get_learning_rate(state) == pytest.approx(1e-4)

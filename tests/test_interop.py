@@ -108,3 +108,25 @@ def test_torch_tensor_inputs():
     params = load_torch_state_dict(sd, cfg)
     logits = make_forward(cfg)(params, jnp.zeros((1, 1, 32, 64)))
     assert logits.shape == (1, 3)
+
+
+@pytest.mark.parametrize("wrapped", [True, False],
+                         ids=["training_checkpoint", "bare_state_dict"])
+def test_load_torch_checkpoint_file(tmp_path, wrapped):
+    """A .pth on disk, as the reference's training checkpoint dict or a bare
+    state_dict, imports to the same tree as load_torch_state_dict."""
+    torch = pytest.importorskip("torch")
+    from vitiq.interop import load_torch_checkpoint
+
+    cfg = ModelConfig(arm="rawiq", num_classes=3, d_model=16, n_head=2,
+                      n_layers=1, ffn_hidden=32, seq_length=64,
+                      segment_size=16)
+    sd = {k: torch.from_numpy(v) for k, v in
+          synth_state_dict(cfg, np.random.default_rng(4)).items()}
+    path = tmp_path / "model.pth"
+    torch.save({"model_state_dict": sd, "epoch": 3} if wrapped else sd, path)
+    got = load_torch_checkpoint(str(path), cfg)
+    want = load_torch_state_dict(sd, cfg)
+    for a, b in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

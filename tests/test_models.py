@@ -148,34 +148,33 @@ class TestConfigValidation:
         assert cfg2.data == cfg.data
 
     def test_vit_tpu_production_preset(self):
-        """The TPU-recommended H2 preset (d_head=64 — the measured 1.53x
-        serving+training variant with the statistically-significant
-        accuracy gate): reference ViT in every respect except n_head,
-        and forward-compatible."""
+        """The H2 preset (d_head=64 — the variant with the statistically-
+        significant accuracy gate): reference ViT in every respect except
+        n_head, and forward-compatible."""
         from vitiq.config import ExperimentConfig
         ref = ExperimentConfig.vit_reference()
-        tpu = ExperimentConfig.vit_tpu_production()
-        assert tpu.model.n_head == 2
-        assert tpu.model.d_model == ref.model.d_model
-        assert tpu.model.n_layers == ref.model.n_layers
-        tpu.model.validate()
-        params = init_amc_params(jax.random.PRNGKey(0), tpu.model)
+        h2 = ExperimentConfig.vit_tpu_production()
+        assert h2.model.n_head == 2
+        assert h2.model.d_model == ref.model.d_model
+        assert h2.model.n_layers == ref.model.n_layers
+        h2.model.validate()
+        params = init_amc_params(jax.random.PRNGKey(0), h2.model)
         x = jnp.asarray(np.random.default_rng(2).standard_normal(
             (2, 1, 32, 64)), jnp.float32)
-        assert make_forward(tpu.model)(params, x).shape == (2, 19)
+        assert make_forward(h2.model)(params, x).shape == (2, 19)
 
 
-class TestTPUNumericsPreset:
+class TestBf16NumericsPreset:
     def test_bf16_close_to_f32(self):
         cfg32 = tiny_vit(drop_prob=0.0)
         cfg16 = tiny_vit(drop_prob=0.0, numerics="tpu")
         params = init_amc_params(jax.random.PRNGKey(0), cfg32)
         x = jnp.asarray(np.random.default_rng(1).standard_normal((2, 1, 32, 64)), jnp.float32)
         ref = np.asarray(make_forward(cfg32)(params, x))
-        tpu = np.asarray(make_forward(cfg16)(params, x))
+        bf16 = np.asarray(make_forward(cfg16)(params, x))
         # bf16 matmuls with f32 accumulation & LN: logits agree loosely
-        np.testing.assert_allclose(ref, tpu, atol=0.15, rtol=0.1)
-        assert np.mean(np.argmax(ref, -1) == np.argmax(tpu, -1)) >= 0.5
+        np.testing.assert_allclose(ref, bf16, atol=0.15, rtol=0.1)
+        assert np.mean(np.argmax(ref, -1) == np.argmax(bf16, -1)) >= 0.5
 
 
 class TestRawiqBestPreset:

@@ -15,7 +15,7 @@ import jax
 
 from vitiq.data.feeds import ArrayFeed, ProcessShardFeed
 from vitiq.parallel.mesh import (batch_sharding, make_mesh,
-                                 make_multislice_mesh, process_local_rows,
+                                 process_local_rows,
                                  shard_batch, shard_batch_per_process)
 
 
@@ -51,13 +51,6 @@ class TestProcessLocalRows:
         s0 = process_local_rows(mesh, 16, process_index=0,
                                 process_of_device=lambda d: owner[d.id])
         assert (s0.start, s0.stop) == (0, 4)
-
-    def test_multislice_mesh_rows(self):
-        mesh = make_multislice_mesh(dcn_data=2, model=1)
-        fake = _fake_two_procs(mesh)
-        s0 = process_local_rows(mesh, 32, process_index=0, process_of_device=fake)
-        s1 = process_local_rows(mesh, 32, process_index=1, process_of_device=fake)
-        assert s0.stop == s1.start and s0.start == 0 and s1.stop == 32
 
     def test_non_contiguous_process_rejected(self):
         """A process whose devices interleave on the data axis cannot feed

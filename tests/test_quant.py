@@ -130,61 +130,3 @@ class TestQuantizedModel:
         q_acc = np.mean(np.asarray(qfwd(qparams, xv)).argmax(-1) == yv)
         assert float_acc > 0.8
         assert q_acc >= float_acc - 0.02, (float_acc, q_acc)
-
-
-class TestFusedInt8Layer:
-    def test_matches_unfused_quantized_layer(self):
-        """Interpret-mode: the int8 fused layer == the unfused int8 chain."""
-        from jax.experimental.pallas import tpu as pltpu
-        from vitiq.models.layers import encoder_layer_init, layer_norm_apply
-        from vitiq.ops.pallas.fused_encoder_layer import fused_encoder_layer_int8
-
-        rng = np.random.default_rng(0)
-        D, H, n_head = 128, 256, 8
-        params = encoder_layer_init(jax.random.PRNGKey(0), D, H)
-        qlayer = quantize_params_int8(params)
-        x = jnp.asarray(rng.standard_normal((2, 17, D)), jnp.float32)
-
-        # unfused int8 reference chain (same ops as make_quantized_forward)
-        def unfused(qlayer, x):
-            B, L, Dm = x.shape
-            dh = Dm // n_head
-            q = int8_linear(qlayer["attention"]["w_q"], x)
-            k = int8_linear(qlayer["attention"]["w_k"], x)
-            v = int8_linear(qlayer["attention"]["w_v"], x)
-            from vitiq.ops.attention import scaled_dot_product_attention
-            sp = lambda t: t.reshape(B, L, n_head, dh).transpose(0, 2, 1, 3)
-            out = scaled_dot_product_attention(sp(q), sp(k), sp(v))
-            out = out.transpose(0, 2, 1, 3).reshape(B, L, Dm)
-            attn = int8_linear(qlayer["attention"]["w_concat"], out)
-            x1 = layer_norm_apply(qlayer["norm1"], attn + x)
-            h = jnp.maximum(int8_linear(qlayer["ffn"]["linear1"], x1), 0.0)
-            y = int8_linear(qlayer["ffn"]["linear2"], h)
-            return layer_norm_apply(qlayer["norm2"], y + x1)
-
-        want = np.asarray(unfused(qlayer, x))
-        from jax.experimental.pallas import tpu as pltpu
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(fused_encoder_layer_int8(x, qlayer, n_head),
-                             dtype=np.float32)
-        # the fused kernel re-quantizes the attention output (bf16 scratch)
-        # and runs bf16 probs; agreement is loose but bounded
-        assert np.abs(got - want).max() < 0.15 * max(np.abs(want).max(), 1.0)
-        np.testing.assert_allclose(got, want, atol=0.25)
-
-    def test_int8_fused_padding_rows_do_not_leak(self):
-        from jax.experimental.pallas import tpu as pltpu
-        from vitiq.models.layers import encoder_layer_init
-        from vitiq.ops.pallas.fused_encoder_layer import fused_encoder_layer_int8
-
-        params = encoder_layer_init(jax.random.PRNGKey(1), 128, 256)
-        qlayer = quantize_params_int8(params)
-        rng = np.random.default_rng(1)
-        x9 = jnp.asarray(rng.standard_normal((1, 9, 128)), jnp.float32)
-        x9_padded_batch = jnp.concatenate(
-            [x9, 100.0 * jnp.ones((1, 9, 128), jnp.float32)]
-        )
-        with pltpu.force_tpu_interpret_mode():
-            solo = np.asarray(fused_encoder_layer_int8(x9, qlayer, 8))
-            both = np.asarray(fused_encoder_layer_int8(x9_padded_batch, qlayer, 8))
-        np.testing.assert_allclose(solo[0], both[0], atol=1e-3)

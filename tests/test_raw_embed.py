@@ -127,20 +127,19 @@ def test_supported_gating():
 
 
 def test_enabled_gating_per_arm(monkeypatch):
-    """Auto default (round 3aq A/B): on for the contiguous rawiq folds under
-    the tpu policy at every size; for the vit arm only while the
-    block-sparse expansion is small ((N+1)*D <= 2048 — vit_tiny's 1088 won
-    +7% serve on chip, the flagship's 18560 lost −5.5%); =1 forces,
-    =0 kills."""
+    """On for the contiguous rawiq folds under the bf16 policy at every
+    size; for the vit arm only while the block-sparse expansion is small
+    ((N+1)*D <= 2048); never under the f32 reference policy."""
+    from dataclasses import replace
+
     from vitiq.models.raw_embed import fused_raw_embed_enabled
 
-    monkeypatch.delenv("VITIQ_FUSED_EMBED", raising=False)
     assert fused_raw_embed_enabled(rawiq_seg64_mp_config("tpu"))
     assert fused_raw_embed_enabled(flagship_conv1d_config("tpu"))
     assert fused_raw_embed_enabled(vit_tiny_2016_config("tpu"))  # 17*64=1088
     assert not fused_raw_embed_enabled(flagship_vit_config("tpu"))  # 18560
     assert not fused_raw_embed_enabled(rawiq_seg64_mp_config("reference"))
-    monkeypatch.setenv("VITIQ_FUSED_EMBED", "1")
-    assert fused_raw_embed_enabled(flagship_vit_config("tpu"))
-    monkeypatch.setenv("VITIQ_FUSED_EMBED", "0")
-    assert not fused_raw_embed_enabled(rawiq_seg64_mp_config("tpu"))
+    assert not fused_raw_embed_enabled(vit_tiny_2016_config("reference"))
+    # an unsupported fold stays off even under bf16
+    assert not fused_raw_embed_enabled(
+        replace(vit_tiny_2016_config("tpu"), img_size_h=8, img_size_w=8))

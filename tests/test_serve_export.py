@@ -79,7 +79,7 @@ def test_bucket_routing_and_errors(artifact):
 def test_manifest_and_config_embedded(artifact):
     cfg, _, out = artifact
     manifest = json.loads((out / "manifest.json").read_text())
-    assert manifest["format"] == "vitiq-serving/1"
+    assert manifest["format"] == "vitiq-serving/2"
     assert manifest["arm"] == "rawiq"
     assert manifest["frame_len"] == cfg.data.frame_len
     art = ServingArtifact.load(out)
@@ -132,3 +132,31 @@ def test_export_missing_explicit_checkpoint_raises(tmp_path):
     # the default falls back to model_final.npz when best is absent
     out = export_from_experiment(exp, tmp_path / "art2", batch_sizes=[4])
     assert (out / "manifest.json").exists()
+
+
+@pytest.mark.parametrize("platforms", [None, ["cpu"], ["cpu", "cuda"]])
+def test_manifest_records_lowered_platforms(tmp_path, platforms):
+    cfg = _tiny_cfg()
+    params = init_amc_params(jax.random.PRNGKey(1), cfg.model)
+    out = export_serving(cfg, params, STATS, tmp_path / "art", batch_sizes=[4],
+                         platforms=platforms)
+    manifest = json.loads((out / "manifest.json").read_text())
+    assert manifest["platforms"] == (platforms or ["cpu"])
+
+
+def test_cuda_export_carries_the_triton_kernel(tmp_path, monkeypatch):
+    """Exported for CUDA, the bf16 serving program calls the Triton
+    attention kernel through the one custom call export_serving
+    acknowledges (jax.export refuses any it was not told of)."""
+    from vitiq.serve import TRITON_CUSTOM_CALL
+
+    cfg = _tiny_cfg()
+    cfg.model.numerics = "tpu"
+    params = init_amc_params(jax.random.PRNGKey(1), cfg.model)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")  # kernel route
+    out = export_serving(cfg, params, STATS, tmp_path / "art", batch_sizes=[4],
+                         platforms=["cuda"])
+    manifest = json.loads((out / "manifest.json").read_text())
+    assert manifest["platforms"] == ["cuda"]
+    blob = (out / manifest["entries"]["4"]["file"]).read_bytes()
+    assert TRITON_CUSTOM_CALL.encode() in blob

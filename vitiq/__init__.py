@@ -1,7 +1,7 @@
-"""vitiq — a TPU-native (JAX/XLA/Pallas/pjit) framework for automatic modulation
-classification on raw I/Q frames.
+"""vitiq — a JAX (XLA/Pallas) framework for automatic modulation
+classification on raw I/Q frames, run on NVIDIA GPUs.
 
-Re-implements, TPU-first, the full capability surface of the
+Re-implements the full capability surface of the
 `aliftffd/ViT-vs-Raw-IQ` thesis codebase (reference mounted read-only at
 /root/reference/Transformer_Thesis): two transformer arms over RadioML
 2018.01A-style I/Q data —

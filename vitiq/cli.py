@@ -28,7 +28,7 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    help="start from a named ExperimentConfig preset (e.g. "
                         "rawiq_best = the reference's best published "
                         "checkpoint config, vit_tpu_production = the "
-                        "TPU-recommended d_head=64 variant); individual "
+                        "d_head=64 variant); individual "
                         "flags still override")
     # data
     p.add_argument("--source", choices=["synthetic", "hdf5"], default=None)
@@ -90,8 +90,7 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pooling", choices=["cls", "mean"],
                    help="rawiq arm readout (reference USE_CLS_TOKEN flag, "
                         "transformer_rawIQ.py:88-93): 'mean' drops the CLS "
-                        "row — at seg-64 that lands on Lp=16 (zero sublane "
-                        "padding), the highest-ceiling TPU serving shape")
+                        "row (seg-64 then serves 16 tokens)")
     p.add_argument("--numerics", choices=["reference", "tpu"])
     # other
     p.add_argument("--resume", type=str, help="Path to checkpoint to resume from")
@@ -293,7 +292,7 @@ def cmd_bench(args) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="vitiq", description="TPU-native AMC framework (ViT vs raw-IQ)"
+        prog="vitiq", description="AMC framework (ViT vs raw-IQ) on JAX"
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -335,8 +334,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_sizes", default="256,8192",
                    help="Comma-separated fixed batch buckets to compile")
     p.add_argument("--platforms", default=None,
-                   help="Comma-separated lowering targets (e.g. tpu or "
-                        "cpu,tpu); default: current backend")
+                   help="Comma-separated lowering targets (e.g. cuda or "
+                        "cpu,cuda); default: current backend")
     p.add_argument("--checkpoint", default="model_best.npz",
                    help="Weights file inside the experiment dir")
     p.set_defaults(fn=cmd_export)

@@ -2,7 +2,7 @@
 
 The reference feeds the GPU through 6 forked DataLoader workers, each holding
 its own HDF5 handle and normalizing one frame at a time
-(ref: ViT/dataloader/dataset.py:20-241). The TPU-native pipeline instead:
+(ref: ViT/dataloader/dataset.py:20-241). This pipeline instead:
 
   * keeps ONE read path on the host: shuffled epoch order -> sorted chunked
     HDF5 reads (h5py fancy-index reads are fastest in ascending order) ->
@@ -193,11 +193,9 @@ def pack_split_to_npy(
 class PackedDataSource:
     """Memory-mapped reader for `pack_split_to_npy` output.
 
-    Threading policy (measured on this host, docs/BENCHMARKS.md round-3
-    ingestion table): the page-cache-warm ceiling is ~7.4 GB/s sequential
-    memcpy; random gathers run ~3.8 GB/s SERIAL and get SLOWER (~3.2) when
-    fanned over threads (GIL contention on many small copies), while the
-    one-shard batch_stream lookahead wins ~5% and overlaps real IO when the
+    Threading policy: random gathers get SLOWER when fanned over threads
+    (GIL contention on many small copies), while the one-shard
+    batch_stream lookahead wins a little and overlaps real IO when the
     cache is cold. So `read_rows` fans out only with `parallel_reads=True`
     (cold-storage deployments), and the pool's default job is the
     batch_stream shard lookahead."""

@@ -1,11 +1,10 @@
 """Native (C) ingestion kernels: build-on-demand ctypes bindings.
 
 The reference has no native tier at all (SURVEY.md §2: 100% Python); the
-TPU build's hot host path — gathering frame rows out of packed mmap shards
-— is pure memcpy, where numpy's fancy-index iterator leaves ~6% on the
-table (measured 3.56 vs 3.76 GB/s on the bench host, whose ceiling is
-single-core memcpy: one exposed CPU). The kernel is compiled once with the
-system gcc into ~/.cache/vitiq_native and loaded via ctypes (no pybind11 in
+hot host path — gathering frame rows out of packed mmap shards — is pure
+memcpy, where numpy's fancy-index iterator leaves a few per cent on the
+table. The kernel is compiled once with the
+system gcc into <repo>/build/native and loaded via ctypes (no pybind11 in
 this image); ANY failure — no compiler, read-only cache, exotic platform —
 degrades silently to the numpy path, so the framework never *requires* the
 toolchain.
@@ -23,6 +22,7 @@ from typing import Optional
 import numpy as np
 
 _SRC = Path(__file__).parent / "_native" / "gather.c"
+_DEFAULT_CACHE = Path(__file__).resolve().parents[2] / "build" / "native"
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
@@ -37,8 +37,7 @@ def _load() -> Optional[ctypes.CDLL]:
     try:
         src = _SRC.read_text()
         tag = hashlib.sha256(src.encode()).hexdigest()[:16]
-        cache = Path(os.environ.get("VITIQ_NATIVE_CACHE",
-                                    Path.home() / ".cache" / "vitiq_native"))
+        cache = Path(os.environ.get("VITIQ_NATIVE_CACHE", _DEFAULT_CACHE))
         cache.mkdir(parents=True, exist_ok=True)
         so = cache / f"gather-{tag}.so"
         if not so.exists():

@@ -9,7 +9,7 @@ implements that contract for real, JAX-first:
 
   * tap generation and filtering are pure jnp (fusable into the model's jit)
   * Gardner / Mueller-Müller are sequential error-feedback loops -> lax.scan
-    with fixed-capacity outputs + valid masks (TPU-compatible control flow)
+    with fixed-capacity outputs + valid masks (static shapes under jit)
   * energy / correlation phase pickers are fully vectorized
 
 plus the normalization/reshape helpers retained in the reference's

@@ -7,7 +7,7 @@ test contract (ref: test_dsp_functions.py:117-156): `simple_energy`,
 contract: on RRC-shaped QPSK at sps=2 / 20 dB each method recovers ~= the true
 symbol count with small mean timing error in samples.
 
-TPU design notes: the feedback loops are data-dependent recurrences, so they
+Design notes: the feedback loops are data-dependent recurrences, so they
 compile to `lax.scan` with a fixed trip count (n // sps) and a validity mask —
 no dynamic shapes ever reach XLA. The phase pickers are pure vector reductions.
 Host-facing wrappers return plain numpy index arrays.
@@ -162,7 +162,7 @@ def hybrid_timing_positions(i_sig: jnp.ndarray, q_sig: jnp.ndarray, sps: int,
 
     The full feedback loops scan L//sps sequential steps per frame (512 at
     conv-rate frames) — at batch scale that sequential chain IS the e2e
-    Gardner floor (6.3K frames/s, docs/BENCHMARKS.md round 3k). But the
+    Gardner floor. But the
     loop's only job on a static-timing frame is to FIND the fractional
     phase; once converged, open-loop extrapolation samples the remaining
     symbols identically. So: start at the best integer decimation phase

@@ -11,7 +11,7 @@ Artifact-for-artifact parity with the reference's
   {prefix}_accuracy_vs_snr.png
   {prefix}_results.pkl                       (ref: ViT/training/evaluate.py:211-214)
 
-The inference loop differs TPU-side: one jitted forward over padded fixed-shape
+The inference loop differs: one jitted forward over padded fixed-shape
 batches (preprocessing fused in), predictions accumulated on host.
 """
 
@@ -24,8 +24,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import jax
 import numpy as np
 
-from vitiq.eval.plots import plot_accuracy_vs_snr, plot_confusion_matrix
-from vitiq.eval.report import write_classification_report
+from vitiq.eval import plots
+from vitiq.eval.report import confusion_matrix, write_classification_report
 
 TARGET_SNRS = (-8, 0, 8)  # ref: ViT/training/utils.py:349
 
@@ -43,7 +43,7 @@ def predict_all(
     With `mesh` (a jax.sharding.Mesh), serving runs multi-chip: each batch is
     placed as a global array sharded over the mesh's data axis and parameters
     are placed per the TP rules, so jit's partitioner scales inference across
-    ICI exactly like the sharded train step (the reference has no distributed
+    devices exactly like the sharded train step (the reference has no distributed
     serving at all — SURVEY.md §2.9)."""
     step, params, sharding = _make_predict_step(
         forward_fn, params, preprocess_fn, mesh, batch_size)
@@ -183,21 +183,24 @@ def confusion_artifacts(
 ) -> Dict:
     """Steps 1-4 of the reference's evaluate_model_with_confusion given
     predictions: CMs, report txt, acc-vs-SNR plot, pickle
-    (ref: ViT/training/utils.py:284-466)."""
+    (ref: ViT/training/utils.py:284-466). Figures need matplotlib; without
+    it they are skipped with one printed line."""
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
+    if make_plots and not plots.plotting_available():
+        print("matplotlib is not installed: evaluation figures skipped")
+        make_plots = False
+    K = len(class_names)
 
     # 1. overall confusion matrix
+    cm_overall = confusion_matrix(labels, preds, K)
+    acc_overall = float((labels == preds).mean()) if len(labels) else 0.0
     if make_plots:
-        cm_overall, acc_overall = plot_confusion_matrix(
-            labels, preds, class_names,
+        plots.plot_confusion_matrix(
+            cm_overall, class_names, acc_overall,
             title=f"Overall Confusion Matrix - {prefix.capitalize()} Set",
             save_path=save_dir / f"{prefix}_confusion_matrix_overall.png",
         )
-    else:
-        from sklearn.metrics import confusion_matrix as sk_cm
-        cm_overall = sk_cm(labels, preds, labels=np.arange(len(class_names)))
-        acc_overall = float((labels == preds).mean())
     if verbose:
         print(f"Overall Accuracy: {acc_overall * 100:.2f}%")
 
@@ -210,14 +213,13 @@ def confusion_artifacts(
             if verbose:
                 print(f"no samples found for SNR = {target} dB")
             continue
+        acc = float((labels[mask] == preds[mask]).mean())
         if make_plots:
-            _, acc = plot_confusion_matrix(
-                labels[mask], preds[mask], class_names,
+            plots.plot_confusion_matrix(
+                confusion_matrix(labels[mask], preds[mask], K), class_names, acc,
                 title=f"Confusion Matrix - {prefix.capitalize()} Set (SNR = {target} dB)",
                 save_path=save_dir / f"{prefix}_confusion_matrix_snr_{target}dB.png",
             )
-        else:
-            acc = float((labels[mask] == preds[mask]).mean())
         snr_accuracies[target] = acc
         if verbose:
             print(f"Accuracy @ {target} dB: {acc * 100:.2f}%  ({int(mask.sum()):,} samples)")
@@ -235,7 +237,7 @@ def confusion_artifacts(
         if m.sum() > 0:
             snr_acc_pairs.append((float(snr), float((preds[m] == labels[m]).mean() * 100)))
     if make_plots and snr_acc_pairs:
-        plot_accuracy_vs_snr(snr_acc_pairs, acc_overall, TARGET_SNRS, prefix,
+        plots.plot_accuracy_vs_snr(snr_acc_pairs, acc_overall, TARGET_SNRS, prefix,
                              save_dir / f"{prefix}_accuracy_vs_snr.png")
 
     results = {

@@ -1,6 +1,11 @@
 """Evaluation / training plots (matplotlib artifacts matching the reference's:
 confusion-matrix heatmaps, accuracy-vs-SNR line plot, 2-panel training history
-— ref: ViT/training/utils.py:177-281, 408-443)."""
+— ref: ViT/training/utils.py:177-281, 408-443).
+
+matplotlib is optional: `plotting_available()` says whether it is installed,
+and callers skip the figures when it is not. It is imported only here, inside
+the functions, so the train/evaluate path never needs it.
+"""
 
 from __future__ import annotations
 
@@ -9,41 +14,58 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-import matplotlib
 
-matplotlib.use("Agg")  # headless
-import matplotlib.pyplot as plt  # noqa: E402
+def plotting_available() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _pyplot():
+    import matplotlib
+
+    matplotlib.use("Agg")  # headless
+    import matplotlib.pyplot as plt
+
+    return plt
 
 
 def plot_confusion_matrix(
-    y_true: np.ndarray,
-    y_pred: np.ndarray,
+    cm: np.ndarray,
     class_names: Sequence[str],
+    accuracy: float,
     title: str = "Confusion Matrix",
     save_path: Optional[Path] = None,
     normalize: bool = True,
     figsize: Tuple[int, int] = (14, 12),
-) -> Tuple[np.ndarray, float]:
-    """Heatmap + returns (cm, accuracy) like the reference
-    (ref: ViT/training/utils.py:216-281)."""
-    from sklearn.metrics import confusion_matrix as sk_confusion_matrix
-    import seaborn as sns
-
-    labels = np.arange(len(class_names))
-    cm = sk_confusion_matrix(y_true, y_pred, labels=labels)
-    accuracy = float((y_true == y_pred).mean()) if len(y_true) else 0.0
-
+) -> None:
+    """Annotated heatmap of a [K, K] count matrix (rows = true label), like
+    the reference's (ref: ViT/training/utils.py:216-281)."""
+    plt = _pyplot()
     display = cm.astype(np.float64)
     if normalize:
         row_sums = display.sum(axis=1, keepdims=True)
-        display = np.divide(display, np.maximum(row_sums, 1), where=row_sums > 0)
+        # rows with no samples stay 0 (np.divide leaves unwritten entries
+        # uninitialized without `out`)
+        display = np.divide(display, np.maximum(row_sums, 1),
+                            out=np.zeros_like(display), where=row_sums > 0)
 
     fig, ax = plt.subplots(figsize=figsize)
-    sns.heatmap(
-        display, annot=len(class_names) <= 24, fmt=".2f" if normalize else ".0f",
-        cmap="Blues", xticklabels=class_names, yticklabels=class_names,
-        square=True, cbar_kws={"label": "Proportion" if normalize else "Count"}, ax=ax,
-    )
+    im = ax.imshow(display, cmap="Blues")
+    fig.colorbar(im, ax=ax, label="Proportion" if normalize else "Count")
+    ticks = np.arange(len(class_names))
+    ax.set_xticks(ticks, labels=class_names, rotation=90)
+    ax.set_yticks(ticks, labels=class_names)
+    if len(class_names) <= 24:
+        fmt = "{:.2f}" if normalize else "{:.0f}"
+        threshold = display.max() / 2 if display.size else 0
+        for i in range(display.shape[0]):
+            for j in range(display.shape[1]):
+                ax.text(j, i, fmt.format(display[i, j]), ha="center",
+                        va="center", fontsize=7,
+                        color="white" if display[i, j] > threshold else "black")
     ax.set_xlabel("Predicted Label")
     ax.set_ylabel("True Label")
     ax.set_title(f"{title}\nAccuracy: {accuracy * 100:.2f}%")
@@ -52,7 +74,6 @@ def plot_confusion_matrix(
         Path(save_path).parent.mkdir(parents=True, exist_ok=True)
         fig.savefig(save_path, dpi=300, bbox_inches="tight")
     plt.close(fig)
-    return cm, accuracy
 
 
 def plot_accuracy_vs_snr(
@@ -64,6 +85,7 @@ def plot_accuracy_vs_snr(
 ) -> None:
     """Line plot of accuracy over every unique SNR with overall reference line
     (ref: ViT/training/utils.py:408-443). Accuracies in percent."""
+    plt = _pyplot()
     snrs, accs = zip(*snr_accuracy_pairs)
     fig = plt.figure(figsize=(12, 6))
     plt.plot(snrs, accs, "b-o", linewidth=2, markersize=6)
@@ -84,6 +106,7 @@ def plot_accuracy_vs_snr(
 
 def plot_training_history(history: Dict[str, list], save_path: Path) -> None:
     """2-panel loss/accuracy curves (ref: ViT/training/utils.py:177-213)."""
+    plt = _pyplot()
     fig, (ax1, ax2) = plt.subplots(1, 2, figsize=(15, 5))
     epochs = np.arange(1, len(history["train_loss"]) + 1)
     ax1.plot(epochs, history["train_loss"], "b-", label="Train Loss")

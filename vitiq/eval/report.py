@@ -5,7 +5,8 @@ and the comparison tool — `compare_models.py` regex-parses "Overall Accuracy",
 "SNR +N dB" and the sklearn per-class table out of it (ref:
 compare_models.py:33-60 consuming the format written by
 ViT/training/utils.py:384-401). Both sides are implemented here so the format
-can't drift.
+can't drift; the per-class table is computed in numpy, byte-identical to
+sklearn's `classification_report(..., digits=4, zero_division=0)`.
 """
 
 from __future__ import annotations
@@ -15,6 +16,63 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
+
+
+def confusion_matrix(labels, preds, num_classes: int) -> np.ndarray:
+    """[K, K] int64 counts, rows = true label, cols = prediction (sklearn's
+    orientation, over all K classes even when some are absent)."""
+    labels = np.asarray(labels, np.int64)
+    preds = np.asarray(preds, np.int64)
+    flat = labels * num_classes + preds
+    return np.bincount(flat, minlength=num_classes * num_classes).reshape(
+        num_classes, num_classes)
+
+
+def _divide(num, den):
+    """num / den with 0 where den == 0 (sklearn's zero_division=0)."""
+    num = np.asarray(num, np.float64)
+    den = np.asarray(den, np.float64)
+    return np.divide(num, den, out=np.zeros_like(num), where=den != 0)
+
+
+def classification_report_text(labels, preds, class_names: List[str],
+                               digits: int = 4) -> str:
+    """sklearn's classification_report text, for every configured class
+    (labels=range(K), zero_division=0), computed in numpy."""
+    cm = confusion_matrix(labels, preds, len(class_names))
+    tp = np.diag(cm).astype(np.float64)
+    support = cm.sum(axis=1)
+    predicted = cm.sum(axis=0)
+    precision = _divide(tp, predicted)
+    recall = _divide(tp, support)
+    f1 = _divide(2 * tp, support + predicted)
+    if not tp.any():
+        # sklearn counts in floats when nothing at all is right, and prints
+        # the supports as such ("9.0")
+        support = support.astype(np.float64)
+    total = support.sum()
+
+    headers = ["precision", "recall", "f1-score", "support"]
+    width = max(max(len(n) for n in class_names), len("weighted avg"), digits)
+    report = ("{:>{width}s} " + " {:>9}" * 4).format("", *headers, width=width)
+    report += "\n\n"
+    row_fmt = "{:>{width}s} " + " {:>9.{digits}f}" * 3 + " {:>9}\n"
+    for row in zip(class_names, precision, recall, f1, support):
+        report += row_fmt.format(*row, width=width, digits=digits)
+    report += "\n"
+    accuracy = float(_divide(tp.sum(), total))
+    report += ("{:>{width}s} " + " {:>9.{digits}}" * 2 + " {:>9.{digits}f}"
+               + " {:>9}\n").format("accuracy", "", "", accuracy, total,
+                                     width=width, digits=digits)
+    # np.average(m, weights=support) as sklearn computes it, so the last
+    # printed digit rounds the same way
+    weighted = ((lambda m: float(np.average(m, weights=support))) if total
+                else (lambda m: float(np.mean(m))))
+    for heading, avg in (("macro avg", lambda m: float(np.mean(m))),
+                         ("weighted avg", weighted)):
+        report += row_fmt.format(heading, avg(precision), avg(recall), avg(f1),
+                                 total, width=width, digits=digits)
+    return report
 
 
 def write_classification_report(
@@ -41,18 +99,12 @@ def write_classification_report(
 
         <sklearn classification_report, digits=4>
 
-    Accuracies are fractions in [0, 1].
+    Accuracies are fractions in [0, 1]. The table covers ALL configured
+    classes: the reference's sklearn call raises when a class is absent
+    from a (small) split (utils.py:384-389 passes target_names only); the
+    text is byte-identical to its whenever every class appears.
     """
-    from sklearn.metrics import classification_report
-
-    # labels= pins the report to ALL configured classes: without it sklearn
-    # raises when a class is absent from a (small) split — a latent crash
-    # the reference shares (utils.py:384-389 passes target_names only).
-    # Byte-identical to the reference format whenever every class appears.
-    report = classification_report(labels, preds,
-                                   labels=np.arange(len(class_names)),
-                                   target_names=class_names, digits=4,
-                                   zero_division=0)
+    report = classification_report_text(labels, preds, class_names)
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     with open(path, "w") as f:

@@ -114,22 +114,12 @@ def load_torch_state_dict(state_dict: Mapping[str, Any], cfg: ModelConfig):
             "mlp_head": _linear(sd, "mlp_head.1")}
 
 
-def load_torch_checkpoint(path: str, cfg: ModelConfig, check_bounds: bool = True):
+def load_torch_checkpoint(path: str, cfg: ModelConfig):
     """Load a reference .pth training checkpoint (expects the reference's
     checkpoint dict with 'model_state_dict', ref: ViT/training/utils.py:550-587,
-    or a bare state_dict).
-
-    check_bounds runs the fused-softmax calibration guard
-    (vitiq.ops.guards.check_softmax_bound) on the imported weights and warns
-    if their attention scores approach the max-free fused kernels' overflow
-    bound."""
+    or a bare state_dict)."""
     import torch
 
     blob = torch.load(path, map_location="cpu", weights_only=False)
     sd = blob.get("model_state_dict", blob) if isinstance(blob, dict) else blob
-    params = load_torch_state_dict(sd, cfg)
-    if check_bounds:
-        from vitiq.ops.guards import check_softmax_bound
-
-        check_softmax_bound(params, cfg)
-    return params
+    return load_torch_state_dict(sd, cfg)

@@ -52,21 +52,16 @@ def make_forward(cfg: ModelConfig, attention_fn: Optional[Callable] = None,
     policy = policy_for(cfg.numerics)
     if attention_fn is None:
         if cfg.numerics == "tpu":
-            # fused Pallas attention on TPU backends; falls back to XLA elsewhere
+            # the fused Triton attention on the GPU; plain XLA elsewhere
             from vitiq.ops.pallas.flash_attention import fused_attention
             attention_fn = fused_attention
         else:
             attention_fn = scaled_dot_product_attention
 
-    # CLS pooling consumes only token 0, so the fused serving path may skip
-    # every other query row of the last layer (encoder returns [B, 1, d])
-    cls_only = cfg.arm == "vit" or cfg.use_cls_token
-
     def forward(params, src, train: bool = False, rng=None):
         x = encoder_apply(
             params["encoder"], src, cfg, policy, train=train, rng=rng,
-            attention_fn=attention_fn, cls_only_fused=cls_only,
-            raw_stats=raw_stats,
+            attention_fn=attention_fn, raw_stats=raw_stats,
         )
         if cfg.arm == "vit":
             feat = x[:, 0]

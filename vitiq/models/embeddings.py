@@ -1,9 +1,9 @@
 """Token embeddings and positional encoding.
 
-TPU-first: the reference's strided Conv2d/Conv1d patchifiers are algebraically
-plain GEMMs once the input is folded (space-to-depth). We implement them that
-way — a reshape/transpose feeding one [B*N, fan_in] x [fan_in, d_model] matmul
-that tiles straight onto the MXU — instead of translating the conv ops.
+The reference's strided Conv2d/Conv1d patchifiers are algebraically plain
+GEMMs once the input is folded (space-to-depth). We implement them that way —
+a reshape/transpose feeding one [B*N, fan_in] x [fan_in, d_model] matmul —
+instead of translating the conv ops.
 
 Reference behavior preserved:
   * 2D patchify: Conv2d(in_ch, d, kernel=p, stride=p) -> flatten -> transpose

@@ -13,7 +13,6 @@ Pipeline (ref: ViT/models/encoder.py:34-53, transformer_rawIQ/models/encoder.py:
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import jax
@@ -24,12 +23,6 @@ from vitiq.models import embeddings as emb
 from vitiq.models.layers import dropout, encoder_layer_apply, encoder_layer_init
 from vitiq.ops.attention import scaled_dot_product_attention
 from vitiq.ops.numerics import Policy
-
-
-def _fused_train_supported(L: int, D: int, ffn_hidden: int) -> bool:
-    from vitiq.ops.pallas.fused_layer_train import fused_train_supported
-
-    return fused_train_supported(L, D, ffn_hidden)
 
 
 def encoder_init(rng, cfg: ModelConfig):
@@ -63,15 +56,9 @@ def encoder_apply(
     rng: Optional[jax.Array] = None,
     mask=None,
     attention_fn=scaled_dot_product_attention,
-    cls_only_fused: bool = False,
     raw_stats=None,
 ):
     """Returns the full token sequence [B, L, d_model].
-
-    cls_only_fused: the caller consumes ONLY token 0 (CLS pooling) — the
-    fused serving path then computes just the CLS row of the final layer
-    (~1/18 of a full layer) and returns [B, 1, d_model]. Ignored off the
-    fused path.
 
     raw_stats: when given (the i/q mean/std dict), `src` is the RAW
     [B, L, 2] frame batch and preprocess + embed + CLS + PE run as ONE
@@ -112,175 +99,8 @@ def encoder_apply(
         x = dropout(x, cfg.drop_prob, None, train)
         layer_rngs = [None] * cfg.n_layers
 
-    # Mesh policy for the fused Pallas kernels (VERDICT r2 item 3):
-    #  * model axis > 1 (tensor parallelism): fused kernels consume FULL
-    #    [D, *] weight tensors and cannot run over partitioned params — the
-    #    XLA path owns TP (megatron shardings resolved by jit's partitioner).
-    #    Fall back with a one-time warning so the perf change is visible.
-    #  * data axes > 1: XLA's SPMD partitioner cannot split a pallas_call,
-    #    so the stacks run per-shard inside jax.shard_map over the ambient
-    #    mesh (batch sharded, params replicated) — collectives stay outside
-    #    the kernel, each chip runs the same kernel on its local shard.
-    from vitiq.parallel.mesh import ambient_mesh, mesh_data_axes
-
-    mesh = ambient_mesh()
-    tp_active = mesh is not None and dict(mesh.shape).get("model", 1) > 1
-    data_axes = mesh_data_axes(mesh) if mesh is not None else ()
-    # VITIQ_FUSED_FORCE=1 engages the fused kernels off-TPU — paired with
-    # VITIQ_PALLAS_INTERPRET=1 (generic pallas interpreter) this lets the
-    # virtual-mesh dryrun certify the production kernel path on CPU.
-    # VITIQ_FUSED_F32=1 (certification-only) additionally admits the f32
-    # reference policy into the fused family: the kernels are dtype-generic,
-    # and running them in f32 lets the dryrun bound the PLUMBING error
-    # (shard_map, layouts, masks) at ~1e-3 instead of hiding it under bf16
-    # rounding (VERDICT r3 item 8). Never default — production fused
-    # serving is the bf16 policy.
-    fused_family = (
-        (policy.compute_dtype == jnp.bfloat16
-         or os.environ.get("VITIQ_FUSED_F32") == "1")
-        and getattr(attention_fn, "packed_layout", False)
-        and (jax.default_backend() == "tpu"
-             or os.environ.get("VITIQ_FUSED_FORCE") == "1")
-    )
-    if tp_active and fused_family:
-        import warnings
-
-        warnings.warn(
-            "fused Pallas kernels are data-parallel only; model axis > 1 "
-            "falls back to the XLA path (megatron TP via jit shardings)",
-            stacklevel=2)
-        fused_family = False
-
-    def run_stack(stack_fn, xx, layers, *extra):
-        """Run a fused stack directly, or per-shard via shard_map when the
-        ambient mesh shards the batch."""
-        if not data_axes:
-            return stack_fn(xx, layers, *extra)
-        from jax.sharding import PartitionSpec as P
-
-        spec = P(data_axes)
-        in_specs = (spec, P()) + tuple(P() for _ in extra)
-        return jax.shard_map(stack_fn, mesh=mesh, in_specs=in_specs,
-                             out_specs=spec, check_vma=False)(xx, layers, *extra)
-
-    # TRAINING fused path: Pallas forward + Pallas backward per layer with
-    # in-kernel dropout (vitiq/ops/pallas/fused_layer_train.py). The mask
-    # stream is the TPU PRNG seeded from this step's key — deterministic per
-    # (seed, step) like the XLA path, but a different stream (mask parity
-    # across implementations is not a semantic requirement).
-    if (
-        train
-        and rng is not None
-        and mask is None
-        and fused_family
-        and os.environ.get("VITIQ_FUSED_TRAIN", "1") != "0"
-        # validated on hardware by scripts/tpu_check_train.py: global grad
-        # cosine 0.99999 vs XLA autodiff, dropout deterministic/seed-
-        # sensitive, fwd/bwd mask consistency via coordinate FD
-        # Long sequences (conv1d, 1025 tokens) are ineligible: the train
-        # backward's scoped-VMEM stack exceeds the 16 MB limit even at G=1
-        # (measured 65.25 MB at Lp=1040) — the XLA train path below owns
-        # those shapes.
-        and _fused_train_supported(x.shape[1], cfg.d_model, cfg.ffn_hidden)
-    ):
-        from vitiq.ops.pallas.fused_layer_train import fused_train_layer_stack
-
-        data = rng
-        if jnp.issubdtype(data.dtype, jax.dtypes.prng_key):
-            data = jax.random.key_data(data)
-        seed = jax.lax.bitcast_convert_type(data[0], jnp.int32)
-
-        def train_stack(xx, layers, seed_):
-            if data_axes:
-                # decorrelate dropout masks across batch shards: fold the
-                # linearized shard index into the seed
-                idx = jnp.int32(0)
-                for ax in data_axes:
-                    idx = idx * dict(mesh.shape)[ax] + jax.lax.axis_index(ax)
-                seed_ = seed_ + idx * jnp.int32(-1640531527)  # golden-ratio mix
-            return fused_train_layer_stack(xx, layers, cfg.n_head,
-                                           cfg.drop_prob, seed_)
-
-        return run_stack(train_stack, policy.cast_compute(x),
-                         params["layers"], seed)
-
-    # Inference under the bf16 TPU policy runs each layer as ONE fused Pallas
-    # kernel (attention + post-norms + FFN resident in VMEM) — this model is
-    # HBM-bandwidth-bound, and the fused layer cuts per-layer activation
-    # traffic ~10x. Dropout is identity in eval, so semantics are unchanged.
-    if (
-        not train
-        and mask is None
-        and fused_family
-        and os.environ.get("VITIQ_NO_FUSED_LAYER") != "1"
-    ):
-        from vitiq.ops.pallas.fused_encoder_layer import (
-            fused_encoder_layer_v2_stack,
-            fused_encoder_layer_v3_stack,
-        )
-
-        # serving kernel selector (see fused_encoder_layer.py docstrings);
-        # v3 (score-tile-streamed) measured 1.5x faster than v2 on the
-        # flagship (87.1 vs 131.9 ms @ batch 8192, v5e);
-        # override with VITIQ_FUSED_VERSION={v2,v3}
-        version = os.environ.get("VITIQ_FUSED_VERSION", "v3")
-        if version == "v2":
-            return run_stack(
-                lambda xx, ll: fused_encoder_layer_v2_stack(xx, ll, cfg.n_head),
-                policy.cast_compute(x), params["layers"])
-        if (x.shape[1] > 512 and not os.environ.get("VITIQ_ATTN_INT8") == "1"
-                and os.environ.get("VITIQ_LONGSEQ", "0") == "1"):
-            # OPT-IN (VITIQ_LONGSEQ=1): query-tiled long-sequence stack —
-            # QKV GEMM in XLA, everything else tiled over query rows.
-            # MEASURED LOSS on conv1d (1025 tokens, v5e): 4.5K/5.2K frames/s
-            # at TQ=128/576 vs the all-rows v3 kernel's 5.5K; TQ=384 OOMs
-            # scoped VMEM. The long-seq wall is the same d_head=16 per-head
-            # serialization, ~8x the flagship's chain length — query tiling
-            # doesn't change it (docs/BENCHMARKS.md round-2.6). Kept gated +
-            # interpret-tested as the record.
-            from vitiq.ops.pallas.fused_encoder_layer import (
-                fused_encoder_layer_v4long_stack,
-            )
-
-            return run_stack(
-                lambda xx, ll: fused_encoder_layer_v4long_stack(
-                    xx, ll, cfg.n_head,
-                    cls_only=cls_only_fused
-                    and os.environ.get("VITIQ_CLS_ONLY", "1") != "0"),
-                policy.cast_compute(x), params["layers"])
-        return run_stack(
-            lambda xx, ll: fused_encoder_layer_v3_stack(
-                xx, ll, cfg.n_head,
-                attn_int8=os.environ.get("VITIQ_ATTN_INT8") == "1",
-                cls_only=cls_only_fused
-                and os.environ.get("VITIQ_CLS_ONLY", "1") != "0"),
-            policy.cast_compute(x), params["layers"])
-
-    # Long-sequence training off the fused path rematerializes each layer
-    # (jax.checkpoint): XLA otherwise keeps every layer's [B, L, D]
-    # intermediates live for the backward — measured 20.01 GB HBM for
-    # conv1d (1025 tokens) at train batch 256 against the 15.75 GB chip.
-    # Remat recomputes the layer forward during the backward instead (the
-    # fused train kernels make the same trade in-kernel). VITIQ_TRAIN_REMAT:
-    # auto (default, sequences > 512 tokens only), 1 (always), 0 (never).
-    remat_env = os.environ.get("VITIQ_TRAIN_REMAT", "auto")
-    use_remat = train and (
-        remat_env == "1" or (remat_env == "auto" and x.shape[1] > 512))
-    if use_remat:
-        def _layer(layer_params, xx, layer_rng):
-            return encoder_layer_apply(
-                layer_params, xx, cfg.n_head, cfg.drop_prob, layer_rng, train,
-                mask=mask, policy=policy, attention_fn=attention_fn,
-            )
-
-        _layer = jax.checkpoint(_layer)
-        for layer_params, layer_rng in zip(params["layers"], layer_rngs):
-            x = _layer(layer_params, x, layer_rng)
-        return x
-
     for layer_params, layer_rng in zip(params["layers"], layer_rngs):
         x = encoder_layer_apply(
             layer_params, x, cfg.n_head, cfg.drop_prob, layer_rng, train,
-            mask=mask, policy=policy, attention_fn=attention_fn,
-        )
+            mask=mask, policy=policy, attention_fn=attention_fn)
     return x

@@ -62,8 +62,8 @@ def layer_norm_apply(params, x, eps: float = LN_EPS, out_dtype=None):
     """Biased-variance LayerNorm with eps=1e-12; statistics always in f32.
 
     `out_dtype` controls the residual-stream dtype: f32 by default (reference
-    parity), bf16 under the 'tpu' policy so the activation stream stays
-    half-width in HBM.
+    parity), bf16 under the bf16 policy so the activation stream stays
+    half-width in device memory.
     """
     x32 = x.astype(jnp.float32)
     mean = jnp.mean(x32, axis=-1, keepdims=True)
@@ -102,12 +102,12 @@ def mha_apply(params, x, n_head: int, mask=None, policy: Policy = REFERENCE,
               attention_fn=scaled_dot_product_attention):
     """Self-attention (q = k = v = x, as the encoder always calls it).
 
-    ``attention_fn`` lets the model swap in the Pallas fused kernel.
+    ``attention_fn`` lets the model swap in the fused Triton kernel.
     """
     B, L, D = x.shape
     d_head = D // n_head
     # fused QKV projection: one [D, 3D] GEMM reads x once instead of three
-    # times (this model is HBM-bandwidth-bound at d_model=128). The weight
+    # times (this model is memory-bandwidth-bound at d_model=128). The weight
     # concat is over constant params, folded at compile time; numerics are
     # identical to three separate GEMMs.
     w_qkv = jnp.concatenate(
@@ -120,8 +120,8 @@ def mha_apply(params, x, n_head: int, mask=None, policy: Policy = REFERENCE,
     qkv = policy.cast_output(policy.dot(x, w_qkv) + b_qkv)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
     if getattr(attention_fn, "packed_layout", False):
-        # fused kernels take heads packed in the model dim ([B, L, D] stays
-        # compact in HBM; the head split is free inside VMEM)
+        # the fused kernel takes heads packed in the model dim ([B, L, D]
+        # stays compact in device memory; each program reads one head)
         out = attention_fn(q, k, v, n_head, mask=mask, policy=policy)
     else:
         # split heads: [B, L, D] -> [B, H, L, Dh]  (multi_head_attention.py:34-40)
@@ -173,7 +173,7 @@ def encoder_layer_apply(params, x, n_head: int, drop_prob: float, rng, train: bo
     else:
         r_attn = r_ffn_inner = r_ffn_out = None
     # residual stream dtype: f32 for reference parity, compute dtype (bf16)
-    # under the TPU policy — halves the HBM traffic of every residual/LN pass
+    # under the bf16 policy — halves the memory traffic of every residual/LN pass
     stream_dtype = None if policy.compute_dtype == jnp.float32 else policy.compute_dtype
     # 1-2. self-attention, dropout BEFORE the residual add, then post-norm
     attn = mha_apply(params["attention"], x, n_head, mask=mask, policy=policy,

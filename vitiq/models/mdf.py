@@ -9,11 +9,11 @@ sequence [B, 1024, 2] — all derived from the z-scored signal (pass the
 dataset stats to `preprocess_batch_mdf(x, stats=...)` for those exact
 semantics) (call signature: cell 19, `model(amp, phase, iq_seq)`). The `CNN_LSTM_new` module itself is MISSING
 from the reference tree (SURVEY.md §2.7), so the internals below are a
-TPU-native capability-equivalent reconstruction, not a port: two weight-tied-
+capability-equivalent reconstruction, not a port: two weight-tied-
 architecture (separately parameterized) CNN towers for the amplitude/phase
 images, a strided-conv front end + LSTM for the I/Q sequence (the stride-8
 front end keeps the `lax.scan` at 128 steps instead of 1024 — sequential
-scan steps are the one thing the MXU cannot parallelize), and a fused MLP
+scan steps are the one thing the matrix units cannot parallelize), and a fused MLP
 head over the concatenated domain features.
 
 Factory API mirrors the notebook's:
@@ -94,8 +94,8 @@ def _lstm_init(rng, d_in, d_hidden):
 def _lstm_apply(params, xs, d_hidden):
     """xs [B, T, D] -> final hidden state [B, H] via lax.scan."""
     B = xs.shape[0]
-    # hoist the input projection out of the scan: one big [B*T, D] GEMM on
-    # the MXU; the scan carries only the [B, H] recurrent GEMM
+    # hoist the input projection out of the scan: one big [B*T, D] GEMM;
+    # the scan carries only the [B, H] recurrent GEMM
     gx = linear_apply(params["wx"], xs)  # [B, T, 4H]
 
     def step(carry, gx_t):

@@ -1,11 +1,10 @@
 """Fused raw-frame embedding: preprocess + patchify + embed + CLS + PE as ONE
 GEMM straight off the raw [B, L, 2] frame batch.
 
-Motivation (round 3ap probes, docs/BENCHMARKS.md): the unfused front-end —
-z-score -> channel concat -> image/segment fold -> embed GEMM -> CLS concat ->
-PE add — is a chain of small-minor-dim layout ops that XLA materializes at
-padded-lane cost on TPU, and its adjoint (the embed dW needs the fold output)
-re-runs the fold in the backward. Every op in the chain is AFFINE in the raw
+Motivation: the unfused front-end — z-score -> channel concat ->
+image/segment fold -> embed GEMM -> CLS concat -> PE add — is a chain of
+small-minor-dim layout ops that XLA materializes, and its adjoint (the embed
+dW needs the fold output) re-runs the fold in the backward. Every op in the chain is AFFINE in the raw
 frame, so the whole front-end folds EXACTLY into the embedding GEMM:
 
   tokens = zscore_fold(x) @ W + b + PE  ==  x_flat @ W' + b'
@@ -22,7 +21,7 @@ ViT/dataloader/dataset.py:211-226 and transformer_rawIQ/dataloader/
 dataset.py:214-224, the Conv2d/Conv1d patchifiers (ViT/models/embedding/
 patch_embedding.py:3-15, transformer_rawIQ/models/embedding/
 patch_embedding.py:5-60), the CLS prepend and sinusoidal PE add
-(ViT/models/encoder.py:34-53). Under the bf16 TPU policy the fused GEMM
+(ViT/models/encoder.py:34-53). Under the bf16 policy the fused GEMM
 rounds differently from the unfused chain (W/sigma is rounded once instead of
 z per-element) — equal-quality numerics, covered by the parity tests.
 
@@ -41,11 +40,11 @@ Arms:
 
 from __future__ import annotations
 
-import os
 from typing import Dict, Optional
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 
 from vitiq.config import ModelConfig
 from vitiq.models.embeddings import sinusoidal_encoding
@@ -64,32 +63,23 @@ def fused_raw_embed_supported(cfg: ModelConfig) -> bool:
 
 
 def fused_raw_embed_enabled(cfg: ModelConfig) -> bool:
-    """Gate for entry points (bench/train/serve): VITIQ_FUSED_EMBED=0 off,
-    =1 forces (where supported), default auto = on under the bf16 'tpu'
-    numerics for the RAWIQ arms only (the 'reference' f32 policy keeps the
-    unfused chain as the bit-parity target). Pure XLA — works on every
-    backend.
-
-    The vit arm's fold is a strided permutation, so the fused operand is
-    the block-sparse [2L, (N+1)*D] expansion — extra MACs that trade
-    against the deleted layout ops. Measured on chip (round 3aq,
-    docs/BENCHMARKS.md): a WIN at small expansions (vit_tiny,
-    (N+1)*D=1088: serve 1.313M → 1.406M frames/s, train neutral) and a
-    LOSS at flagship scale ((N+1)*D=18560: −2.5% train, −5.5% serve) —
-    auto gate at (N+1)*D <= 2048, covering the measured win and excluding
-    everything near the measured loss. The segment/conv1d folds are
-    contiguous, so their fused GEMM is the same FLOPs with the layout ops
-    deleted (+1.4-1.6% train) — auto-on at every size."""
-    env = os.environ.get("VITIQ_FUSED_EMBED", "auto")
-    if env == "0":
-        return False
-    if not fused_raw_embed_supported(cfg):
-        return False
-    if env == "1":
-        return True
-    if cfg.numerics != "tpu":
+    """Gate for entry points (bench/train/serve): on under the bf16 numerics
+    ('tpu' preset) wherever the fold is supported — always for the rawIQ
+    arms, whose segment/conv1d folds are contiguous (the same FLOPs with
+    the layout ops deleted), and for the vit arm only while the
+    block-sparse [2L, (N+1)*D] expansion is small ((N+1)*D <= 2048: its
+    extra MACs grow with the token count). The 'reference' f32 policy keeps
+    the unfused chain as the bit-parity target. Pure XLA — works on every
+    backend. The vit threshold is not yet re-measured on the GPU."""
+    if cfg.numerics != "tpu" or not fused_raw_embed_supported(cfg):
         return False
     return cfg.arm != "vit" or cfg.num_tokens * cfg.d_model <= 2048
+
+
+def _exact_dot(a, b):
+    """f32 product of parameter-sized operands at full precision (a GPU
+    would otherwise run it in TF32 under either numerics policy)."""
+    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _vit_maps(cfg: ModelConfig):
@@ -135,7 +125,7 @@ def fused_raw_embed_apply(
         Wp = W[p_of] * inv_sigma[c_of][:, None]                  # [2L, D] f32
         onehot = jnp.asarray(np.eye(N + off, dtype=np.float32)[t_of + off])
         w_big = (onehot[:, :, None] * Wp[:, None, :]).reshape(2 * L, (N + off) * D)
-        shift = mu[c_of] @ w_big  # w_big rows already carry 1/sigma
+        shift = _exact_dot(mu[c_of], w_big)  # w_big rows carry 1/sigma
         pe = sinusoidal_encoding(cfg.num_tokens, D, jnp.float32)[: N + off]
         bias = jnp.concatenate(
             [enc_params["cls_token"].reshape(1, D).astype(jnp.float32),
@@ -153,13 +143,13 @@ def fused_raw_embed_apply(
         c = np.arange(2 * s) % 2
         row_of = c * s + k                                        # [2s]
         w_perm = W[row_of] * inv_sigma[c][:, None]                # [2s, D] f32
-        shift = mu[c] @ w_perm  # w_perm rows already carry 1/sigma
+        shift = _exact_dot(mu[c], w_perm)  # w_perm rows carry 1/sigma
         tokens = policy.cast_output(
             policy.dot(x.reshape(B, N, 2 * s), w_perm)
             + (b.astype(jnp.float32) - shift))
     else:  # conv1d: per-sample pointwise embed, raw layout is the fold
         w_perm = W * inv_sigma[:, None]                           # [2, D]
-        shift = mu @ w_perm
+        shift = _exact_dot(mu, w_perm)
         tokens = policy.cast_output(
             policy.dot(x, w_perm) + (b.astype(jnp.float32) - shift))
         N = L

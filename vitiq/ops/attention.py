@@ -9,10 +9,11 @@ it (ref: ViT/models/layers/multi_head_attention.py:30-31); we expose it behind
 
 Two execution paths:
 
-* XLA path (below): einsum + softmax, f32 accumulation. At the model's sequence
-  lengths (17-1025 tokens) XLA fuses this well; it is also the CPU-test path.
-* Pallas path (vitiq.ops.pallas.flash_attention): one fused VMEM-resident
-  kernel per (batch, head) tile — no [B,H,L,L] score tensor ever reaches HBM.
+* XLA path (below): einsum + softmax, f32 accumulation — the reference
+  semantics, the f32 preset's path and the CPU path.
+* Triton path (vitiq.ops.pallas.flash_attention): one fused kernel per
+  (batch row, head, query block) — no [B,H,L,L] score tensor ever reaches
+  device memory. The bf16 preset's path on the GPU.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ def scaled_dot_product_attention(
       q, k, v: [batch, heads, length, d_head]
       mask: optional broadcastable mask; positions where ``mask == 0`` are
         filled with -10000 before the softmax.
-      policy: numerics policy (bf16 compute / f32 softmax under TPU preset).
+      policy: numerics policy (bf16 compute / f32 softmax under the bf16 preset).
       return_scores: also return the post-softmax score matrix.
     """
     d_head = q.shape[-1]

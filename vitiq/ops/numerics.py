@@ -4,9 +4,10 @@ Two presets:
 
 * ``REFERENCE`` — float32 everywhere; matches the PyTorch reference bit-closely
   (the parity target per SURVEY.md §7.3 is f32 / atol 1e-5).
-* ``TPU`` — bfloat16 matmul inputs with float32 MXU accumulation and float32
-  parameters / softmax / LayerNorm statistics. This is the production preset:
-  the MXU natively consumes bf16 at 2x the f32 rate while every numerically
+* ``BF16`` (config preset name ``"tpu"``, kept so saved configs load) —
+  bfloat16 matmul inputs with float32 accumulation and float32 parameters /
+  softmax / LayerNorm statistics. This is the production preset: tensor
+  cores consume bf16 at many times the f32 rate while every numerically
   sensitive reduction stays in f32.
 """
 
@@ -23,14 +24,13 @@ import jax.numpy as jnp
 class Policy:
     """Casting rules for one forward/backward pass."""
 
-    compute_dtype: jnp.dtype  # dtype fed to matmuls (MXU)
+    compute_dtype: jnp.dtype  # dtype fed to matmuls
     param_dtype: jnp.dtype = jnp.float32  # dtype parameters are stored in
     accum_dtype: jnp.dtype = jnp.float32  # matmul accumulation / softmax / LN
-    # MXU input precision. The TPU MXU natively truncates f32 operands to
-    # bf16; HIGHEST forces the 3-pass bf16 decomposition that reproduces true
-    # f32 matmuls, which the 'reference' parity preset requires (atol 1e-5 vs
-    # the PyTorch f32 numerics). The 'tpu' preset feeds bf16 directly and
-    # needs no decomposition.
+    # Matmul input precision. By default a GPU may run f32 products in TF32
+    # (about three decimal digits); HIGHEST forces true f32 products, which
+    # the 'reference' parity preset requires (atol 1e-5 vs the PyTorch f32
+    # numerics). The bf16 preset feeds bf16 directly.
     precision: Optional[jax.lax.Precision] = None
 
     def cast_compute(self, x):
@@ -39,14 +39,15 @@ class Policy:
     def cast_output(self, x):
         """Dtype for activations written between ops: f32 accumulation results
         are cast back to the compute dtype under bf16 policies so large
-        intermediates (e.g. the FFN hidden) travel HBM at half width."""
+        intermediates (e.g. the FFN hidden) travel device memory at half
+        width."""
         if self.compute_dtype == jnp.float32:
             return x
         return x.astype(self.compute_dtype)
 
     def dot(self, a, b):
         """Matmul over the last axis of ``a`` and first of ``b`` with policy
-        casting and explicit f32 MXU accumulation."""
+        casting and explicit f32 accumulation."""
         return jnp.dot(
             self.cast_compute(a),
             self.cast_compute(b),
@@ -64,12 +65,12 @@ class Policy:
 
 
 REFERENCE = Policy(compute_dtype=jnp.float32, precision=jax.lax.Precision.HIGHEST)
-TPU = Policy(compute_dtype=jnp.bfloat16)
+BF16 = Policy(compute_dtype=jnp.bfloat16)
 
 
 def policy_for(numerics: str) -> Policy:
     if numerics == "reference":
         return REFERENCE
     if numerics == "tpu":
-        return TPU
+        return BF16
     raise ValueError(f"unknown numerics preset {numerics!r}")

@@ -1,227 +1,223 @@
-"""Fused self-attention Pallas kernel for the AMC encoder.
+"""Fused self-attention for the bf16 production path: one Pallas kernel,
+compiled through Triton for NVIDIA GPUs.
 
-Why a custom kernel instead of translating the reference's matmul chain
-(ref: ViT/models/layers/scale_dot_product_attention.py:18-39): the reference
-materializes the [B, H, L, L] score tensor in device memory twice (pre- and
-post-softmax). At this model's shapes (L = 17..1025) that tensor dominates the
-layer's HBM traffic — at inference batch 8192 on the ViT arm it alone is
-~4.4 GB, which is exactly what OOMs a 16 GB v5e under the XLA path. Here
-scores/probs live only in VMEM.
+Why a kernel (ref: ViT/models/layers/scale_dot_product_attention.py:18-39):
+the plain path materializes the [B, H, L, L] f32 score tensor in device
+memory, reads it back for the softmax, then writes and reads the
+probabilities again. At this model's short sequences (L = 16..1025) and
+tiny heads (d_head 16-32) that score traffic, not the matmuls, is the
+layer's cost. Here scores and probabilities never leave on-chip memory.
 
-Layout design (the part that matters on TPU): heads are kept PACKED in the
-model dimension — kernel operands are [B, Lp, d_model] with d_model = 128 = one
-lane tile. A [B, H, L, d_head] layout with d_head = 16 would be physically
-padded 16 -> 128 lanes in HBM (8x memory blowup); packed, the arrays are
-compact and the per-head split happens for free in VMEM via a reshape. L is
-padded to the sublane tile only (129 -> 144 for bf16), with padded keys masked
-to -inf before the softmax.
+Design:
 
-One grid step per batch element holds the whole [H, Lp, Lp] score block in
-VMEM (~600 KB at L=144) — no K/V streaming loop is needed at these sequence
-lengths.
+* One program per (batch row, head, query block). Heads stay packed in the
+  model dimension of the [B, L, D] projections; the [B, L, H, dh] view is a
+  free reshape, and each program reads its head's dh-wide column stripe.
+* Queries and keys are tiled in power-of-two blocks of up to 64 rows with
+  masked tails, so L = 129 costs three key blocks, not a pad to 256.
+* Online (running-max) softmax over the key blocks in base 2, f32
+  accumulation of bf16 products; the 1/sum normalization is applied once to
+  the [block, dh] output.
 
-The public entry `fused_attention` is packed-layout (consumed by
-`mha_apply` before head splitting); backward recomputes attention under XLA
-(flash-style rematerialization). On CPU/GPU it falls back to the XLA
-reference implementation so tests run anywhere.
+The backward recomputes attention under XLA (custom_vjp) instead of saving
+the probabilities, in batch chunks sized from the device's memory limit.
 
-Precision note: in-kernel dot_generals run at the MXU's native precision —
-f32 operands are truncated to bf16 (measured max err ~1e-2 vs a
-Precision.HIGHEST reference on hardware; exact in interpreter mode). This is
-by design: the kernel serves the bf16 'tpu' preset only. The f32 'reference'
-parity preset never routes through Pallas.
+`fused_attention` is the packed-layout entry `mha_apply` calls;
+`attention_route` decides, without running anything, whether a call takes
+the kernel or the plain XLA path.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from vitiq.ops.attention import scaled_dot_product_attention
-from vitiq.ops.numerics import Policy, REFERENCE, TPU
+from vitiq.ops.numerics import BF16, Policy, REFERENCE
 
-_NEG_INF = -1e30
-
-
-from vitiq.ops.pallas._common import (  # noqa: E402
-    generic_interpret as _generic_interpret,
-    pallas_call as _pallas_call,
-)
+_LOG2E = 1.4426950408889634
+_MAX_BLOCK = 64
 
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
+def attention_route(mask=None, return_scores: bool = False,
+                    backend: Optional[str] = None,
+                    interpret: bool = False) -> str:
+    """'kernel' or 'plain' for one attention call.
+
+    A mask or a request for the score matrix needs the plain path (the
+    kernel never forms the scores). Otherwise the kernel runs where it is
+    compiled, on the GPU, or anywhere in the Pallas interpreter
+    (`interpret=True`). Decided from the arguments and the backend name
+    alone."""
+    if mask is not None or return_scores:
+        return "plain"
+    if interpret:
+        return "kernel"
+    backend = backend or jax.default_backend()
+    return "kernel" if backend == "gpu" else "plain"
 
 
-def _attention_kernel(q_ref, k_ref, v_ref, o_ref, *, seq_len: int, n_head: int,
+def block_size(seq_len: int) -> int:
+    """Query/key tile: the next power of two of L, between 16 (the tensor
+    cores' smallest dot) and 64."""
+    return min(_MAX_BLOCK, max(16, pl.next_power_of_2(seq_len)))
+
+
+def _attention_kernel(q_ref, k_ref, v_ref, o_ref, *, seq_len: int, block: int,
                       scale: float):
-    """One block of G batch rows: packed [G, Lp, D] -> attention -> [G, Lp, D].
+    """One (batch row, head, query block): refs are the head's [L, dh]."""
+    start_q = pl.program_id(2) * block
+    rows = start_q + jnp.arange(block)
+    q = plgpu.load(q_ref.at[pl.ds(start_q, block), :],
+                   mask=(rows < seq_len)[:, None], other=0.0)
+    dh = q.shape[-1]
 
-    Heads are carved out with STATIC lane slices and processed in an unrolled
-    loop: Mosaic cannot relayout a lane-splitting reshape ([Lp, 128] ->
-    [Lp, H, dh], "unsupported shape cast"), but static slices at dh-aligned
-    offsets lower cleanly. Each head does one G-batched [G, Lp, dh] x
-    [G, dh, Lp] MXU matmul — G amortizes both the per-program launch/DMA
-    overhead (a 1-row grid spends more time launching than computing at these
-    shapes) and the MXU tiling waste of the dh=16 contraction.
-    """
-    g, lp, d = q_ref.shape
-    dh = d // n_head
-    # additive -inf bias row for padded keys: ONE vpu op per score element vs
-    # three for iota+compare+select
-    key_bias = jnp.where(
-        jax.lax.broadcasted_iota(jnp.int32, (1, 1, lp), dimension=2) < seq_len,
-        0.0, _NEG_INF,
-    ).astype(jnp.float32)
+    def body(j, carry):
+        acc, m_prev, l_prev = carry
+        cols = j * block + jnp.arange(block)
+        key_ok = cols < seq_len
+        k = plgpu.load(k_ref.at[pl.ds(j * block, block), :],
+                       mask=key_ok[:, None], other=0.0)
+        v = plgpu.load(v_ref.at[pl.ds(j * block, block), :],
+                       mask=key_ok[:, None], other=0.0)
+        s = pl.dot(q, k, trans_b=True) * (scale * _LOG2E)  # [block, block]
+        s = jnp.where(key_ok[None, :], s, -jnp.inf)
+        m_next = jnp.maximum(m_prev, jnp.max(s, axis=-1))
+        alpha = jnp.exp2(m_prev - m_next)
+        p = jnp.exp2(s - m_next[:, None])
+        l_next = l_prev * alpha + jnp.sum(p, axis=-1)
+        acc = acc * alpha[:, None] + pl.dot(p.astype(v.dtype), v)
+        return acc, m_next, l_next
 
-    # Softmax cost dominates this kernel (the score matrix has ~Lp/dh x more
-    # elements than everything else), so the VPU work per score element is
-    # pared to bias-add + exp + sum-accumulate:
-    #  * no max-subtraction — mathematically a no-op, and with LayerNorm'd
-    #    q/k at these widths |score| << 88, the f32 exp overflow bound;
-    #  * the 1/sum normalization is applied to the [G, Lp, dh] OUTPUT of the
-    #    probs @ v matmul instead of the [G, Lp, Lp] probs (dh/Lp ~ 9x fewer
-    #    divisions), using the exact same f32 values.
-    # Each head writes its output-lane slice immediately so its temporaries
-    # are dead before the next head starts (a final concatenate keeps all
-    # heads' score matrices live at once and blows the scoped-VMEM stack).
-    for h in range(n_head):
-        sl = slice(h * dh, (h + 1) * dh)
-        scores = jax.lax.dot_general(
-            q_ref[:, :, sl].astype(jnp.float32), k_ref[:, :, sl].astype(jnp.float32),
-            dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        ) * scale  # [G, Lp, Lp]
-        # exp2: the VPU-native base-2 exponential; log2e folds into the scale
-        probs = jnp.exp2(scores * 1.4426950408889634 + key_bias)
-        denom = jnp.sum(probs, axis=-1, keepdims=True)  # [G, Lp, 1]
-        out = jax.lax.dot_general(
-            probs.astype(v_ref.dtype), v_ref[:, :, sl],
-            dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [G, Lp, dh]
-        o_ref[:, :, sl] = (out / denom).astype(o_ref.dtype)
+    init = (jnp.zeros((block, dh), jnp.float32),
+            jnp.full((block,), -jnp.inf, jnp.float32),
+            jnp.zeros((block,), jnp.float32))
+    acc, _, l_sum = jax.lax.fori_loop(0, pl.cdiv(seq_len, block), body, init)
+    plgpu.store(o_ref.at[pl.ds(start_q, block), :],
+                (acc / l_sum[:, None]).astype(o_ref.dtype),
+                mask=(rows < seq_len)[:, None])
 
 
-def _pick_batch_block(B: int, Lp: int, D: int, itemsize: int) -> int:
-    """Largest G (power of two <= 32) dividing the padded batch such that the
-    kernel's VMEM working set stays comfortably under budget."""
-    for g in (32, 16, 8, 4, 2, 1):
-        # q/k/v/o blocks are double-buffered by the pipeline (x2); q/k are
-        # cast to f32 in-kernel; scores+probs per head live in f32
-        blocks = 2 * 4 * g * Lp * D * itemsize
-        casts = 2 * g * Lp * D * 4
-        scores = 2 * g * Lp * Lp * 4
-        if blocks + casts + scores <= 10 * 1024 * 1024:
-            return g
-    return 1
+def kernel_attention(q, k, v, n_head: int, interpret: bool = False):
+    """Packed [B, L, D] self-attention through the Triton kernel (no mask).
 
-
-def _pallas_attention(q: jnp.ndarray, k: jnp.ndarray, v: jnp.ndarray,
-                      n_head: int) -> jnp.ndarray:
-    """Packed [B, L, D] fused self-attention (no mask support — the AMC
-    encoder never passes one, ref: ViT/models/encoder.py src_mask=None)."""
-    B, L, D = q.shape
-    sublane = 16 if q.dtype == jnp.bfloat16 else 8
-    Lp = _round_up(L, sublane)
-    G = _pick_batch_block(B, Lp, D, q.dtype.itemsize)
-    Bp = _round_up(B, G)
-    pad = lambda t: jnp.pad(t, ((0, Bp - B), (0, Lp - L), (0, 0)))
-    qp, kp, vp = pad(q), pad(k), pad(v)
-
-    kernel = functools.partial(
-        _attention_kernel, seq_len=L, n_head=n_head,
-        scale=1.0 / ((D // n_head) ** 0.5),
-    )
-    block = pl.BlockSpec((G, Lp, D), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)
-    out = _pallas_call(
-        kernel,
-        grid=(Bp // G,),
-        in_specs=[block, block, block],
-        out_specs=block,
-        out_shape=jax.ShapeDtypeStruct((Bp, Lp, D), q.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * Bp * n_head * Lp * Lp * (D // n_head),
-            bytes_accessed=4 * Bp * Lp * D * q.dtype.itemsize,
-            transcendentals=Bp * n_head * Lp * Lp,
-        ),
-    )(qp, kp, vp)
-    return out[:B, :L, :]
-
-
-def _xla_packed_attention(q, k, v, n_head, policy):
-    """Packed-layout reference path (CPU fallback + backward recompute)."""
+    `interpret=True` runs the kernel in the Pallas interpreter (tests on
+    the CPU)."""
     B, L, D = q.shape
     dh = D // n_head
-    split = lambda t: t.reshape(B, L, n_head, dh).transpose(0, 2, 1, 3)
-    out = scaled_dot_product_attention(split(q), split(k), split(v), policy=policy)
-    return out.transpose(0, 2, 1, 3).reshape(B, L, D)
+    block = block_size(L)
+    spec = pl.BlockSpec((None, L, None, dh), lambda b, h, i: (b, 0, h, 0))
+    heads = lambda t: t.reshape(B, L, n_head, dh)
+    out = pl.pallas_call(
+        functools.partial(_attention_kernel, seq_len=L, block=block,
+                          scale=1.0 / dh ** 0.5),
+        grid=(B, n_head, pl.cdiv(L, block)),
+        in_specs=[spec, spec, spec],
+        out_specs=spec,
+        out_shape=jax.ShapeDtypeStruct((B, L, n_head, dh), q.dtype),
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
+        backend="triton",
+        interpret=interpret,
+        name="vitiq_attention",
+    )(heads(q), heads(k), heads(v))
+    return out.reshape(B, L, D)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def _fused_attention_tpu(q, k, v, n_head):
-    return _pallas_attention(q, k, v, n_head)
+def plain_packed_attention(q, k, v, n_head: int, policy: Policy,
+                           mask=None, return_scores: bool = False):
+    """The plain XLA path over packed [B, L, D] operands."""
+    B, L, D = q.shape
+    split = lambda t: t.reshape(B, L, n_head, D // n_head).transpose(0, 2, 1, 3)
+    res = scaled_dot_product_attention(split(q), split(k), split(v), mask=mask,
+                                       policy=policy,
+                                       return_scores=return_scores)
+    merge = lambda t: t.transpose(0, 2, 1, 3).reshape(B, L, D)
+    if return_scores:
+        return merge(res[0]), res[1]
+    return merge(res)
 
 
-def _fwd(q, k, v, n_head):
-    return _pallas_attention(q, k, v, n_head), (q, k, v)
+def bwd_budget_bytes() -> Optional[int]:
+    """Bytes the backward's recomputed score tensors may take at once: an
+    eighth of the device's memory limit, or None (no chunking) where the
+    device reports no limit."""
+    stats = jax.local_devices()[0].memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        return None
+    return int(stats["bytes_limit"]) // 8
 
 
-def _bwd(n_head, residuals, g):
-    # Flash-style backward: recompute attention under XLA (fused by the
-    # compiler) instead of saving the [B, H, L, L] probability tensor.
-    # The recompute runs under the PRIMAL's policy: inputs already arrive in
-    # the policy's compute dtype (bf16 under 'tpu'), so forcing REFERENCE
-    # (Precision.HIGHEST = the 3-pass bf16 f32-emulation, ~3x matmul cost)
-    # here would triple the rematerialization cost of every training step for
-    # no extra precision — the primal itself ran native bf16.
-    # The recompute must still match the primal's output dtype or jax.vjp
-    # rejects the cotangent.
+@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4))
+def _attention(q, k, v, n_head, interpret):
+    return kernel_attention(q, k, v, n_head, interpret)
+
+
+def _attention_fwd(q, k, v, n_head, interpret):
+    return kernel_attention(q, k, v, n_head, interpret), (q, k, v)
+
+
+def _attention_bwd(n_head, interpret, residuals, g):
+    # Recompute under XLA in the primal's dtype: the primal ran bf16
+    # products, so an f32 HIGHEST recompute would cost more for nothing.
     q, k, v = residuals
-    policy = TPU if q.dtype == jnp.bfloat16 else REFERENCE
+    policy = BF16 if q.dtype == jnp.bfloat16 else REFERENCE
     B, L, D = q.shape
 
     def one(args):
         qc, kc, vc, gc = args
         _, vjp = jax.vjp(
-            lambda q_, k_, v_: _xla_packed_attention(q_, k_, v_, n_head,
-                                                     policy).astype(q.dtype),
-            qc, kc, vc,
-        )
+            lambda a, b, c: plain_packed_attention(a, b, c, n_head,
+                                                   policy).astype(q.dtype),
+            qc, kc, vc)
         return vjp(gc)
 
-    # The XLA recompute materializes ~7 bytes/score-element ([B,H,L,L] f32
-    # scores + bf16 probs + a pred mask); at conv1d length (1025 tokens,
-    # train batch 256) that measured 16.9 GB against the 15.75 GB chip.
-    # Tile the batch with lax.map so only one chunk's score tensors are
-    # live at a time — semantics-identical, and a no-op for every shape
-    # whose full recompute fits the budget (flagship 129 tokens: 238 MB).
+    # The recompute holds ~7 bytes per score element (f32 scores, bf16
+    # probabilities, a mask); tile the batch with lax.map so one chunk's
+    # score tensors are live at a time.
+    budget = bwd_budget_bytes()
     per_frame = n_head * L * L * 7
-    budget = int(os.environ.get("VITIQ_ATTN_BWD_BUDGET",
-                                str(2 * 1024 ** 3)))
-    chunk = max(1, min(B, budget // max(per_frame, 1)))
+    chunk = B if budget is None else max(1, min(B, budget // per_frame))
+    g = g.astype(q.dtype)
     if chunk >= B:
         return one((q, k, v, g))
     nb = -(-B // chunk)
     pad = nb * chunk - B
 
     def tile(t):
-        tp = jnp.pad(t, ((0, pad), (0, 0), (0, 0))) if pad else t
-        return tp.reshape(nb, chunk, L, D)
+        return jnp.pad(t, ((0, pad), (0, 0), (0, 0))).reshape(nb, chunk, L, D)
 
-    dq, dk, dv = jax.lax.map(
-        one, (tile(q), tile(k), tile(v), tile(g.astype(q.dtype))))
-    untile = lambda t: t.reshape(nb * chunk, L, D)[:B]
-    return untile(dq), untile(dk), untile(dv)
+    grads = jax.lax.map(one, (tile(q), tile(k), tile(v), tile(g)))
+    return tuple(t.reshape(nb * chunk, L, D)[:B] for t in grads)
 
 
-_fused_attention_tpu.defvjp(_fwd, _bwd)
+_attention.defvjp(_attention_fwd, _attention_bwd)
+
+
+def sharded_kernel_attention(q, k, v, n_head: int, interpret: bool = False):
+    """The differentiable kernel, run per shard under an ambient mesh.
+
+    XLA's partitioner cannot split a pallas_call, so under a mesh the
+    kernel runs inside `jax.shard_map`: the batch over the data axes and,
+    under tensor parallelism, the packed heads over 'model' (the QKV
+    projections are column-sharded by head)."""
+    from jax.sharding import PartitionSpec as P
+
+    from vitiq.parallel.mesh import ambient_mesh, mesh_data_axes
+
+    mesh = ambient_mesh()
+    if mesh is None or mesh.size == 1:
+        return _attention(q, k, v, n_head, interpret)
+    tp = dict(mesh.shape).get("model", 1)
+    spec = P(mesh_data_axes(mesh) or None, None, "model" if tp > 1 else None)
+    return jax.shard_map(
+        lambda a, b, c: _attention(a, b, c, n_head // tp, interpret),
+        mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec,
+        check_vma=False)(q, k, v)
 
 
 def fused_attention(
@@ -232,30 +228,20 @@ def fused_attention(
     mask: Optional[jnp.ndarray] = None,
     policy: Policy = REFERENCE,
     return_scores: bool = False,
+    interpret: bool = False,
 ):
-    """Packed-layout fused attention: [B, L, d_model] in/out.
+    """Packed-layout attention: [B, L, d_model] in and out.
 
-    Pallas on TPU; XLA everywhere else (and whenever a mask or the score
-    matrix is requested).
-    """
-    if mask is not None or return_scores or jax.default_backend() != "tpu":
-        if mask is not None or return_scores:
-            B, L, D = q.shape
-            dh = D // n_head
-            split = lambda t: t.reshape(B, L, n_head, dh).transpose(0, 2, 1, 3)
-            res = scaled_dot_product_attention(
-                split(q), split(k), split(v), mask=mask, policy=policy,
-                return_scores=return_scores,
-            )
-            if return_scores:
-                out, scores = res
-                return out.transpose(0, 2, 1, 3).reshape(B, L, D), scores
-            return res.transpose(0, 2, 1, 3).reshape(B, L, D)
-        return _xla_packed_attention(q, k, v, n_head, policy)
-    compute = policy.cast_compute
-    # stays in the policy's compute dtype: the downstream w_concat matmul
-    # consumes bf16 directly under the TPU policy (no f32 round-trip in HBM)
-    return _fused_attention_tpu(compute(q), compute(k), compute(v), n_head)
+    The Triton kernel where `attention_route` says so (per shard under a
+    mesh); the plain XLA path otherwise. `interpret=True` takes the kernel
+    on any backend, run in the Pallas interpreter, which is how the CPU
+    tests and the virtual-mesh dry run certify it."""
+    if attention_route(mask, return_scores, interpret=interpret) == "plain":
+        return plain_packed_attention(q, k, v, n_head, policy, mask=mask,
+                                      return_scores=return_scores)
+    c = policy.cast_compute
+    # stays in the compute dtype: the w_concat GEMM consumes it directly
+    return sharded_kernel_attention(c(q), c(k), c(v), n_head, interpret)
 
 
 fused_attention.packed_layout = True

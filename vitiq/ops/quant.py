@@ -1,13 +1,13 @@
 """Int8 post-training quantization for the serving path.
 
-The v5e MXU executes int8 x int8 -> int32 at twice the bf16 rate, and int8
-activations halve HBM traffic — the two measured bottlenecks of this model
-family (docs/BENCHMARKS.md). This module implements W8A8 dynamic quantization:
+Tensor cores execute int8 x int8 -> int32 at twice the bf16 rate, and int8
+activations halve device-memory traffic. This module implements W8A8
+dynamic quantization:
 
   * weights: per-output-channel symmetric int8 (absmax / 127), quantized once
     offline from a trained checkpoint;
   * activations: per-row (per-token) symmetric int8 scales computed on the
-    fly — one VPU reduction per matmul input, no calibration data needed;
+    fly — one reduction per matmul input, no calibration data needed;
   * accumulation in int32, dequantized by the rank-1 outer product of row and
     channel scales.
 
@@ -55,8 +55,7 @@ def int8_linear(qlinear: Dict[str, jnp.ndarray], x: jnp.ndarray,
                 out_dtype=jnp.float32) -> jnp.ndarray:
     """Dynamic-activation int8 matmul: y = (x_q @ w_q) * (s_row x s_col) + b.
 
-    x: [..., in] float. Row scales from per-token absmax; int32 accumulation
-    on the MXU's native int8 path.
+    x: [..., in] float. Row scales from per-token absmax; int32 accumulation.
     """
     x32 = x.astype(jnp.float32)
     row_scale = jnp.maximum(jnp.max(jnp.abs(x32), axis=-1, keepdims=True), 1e-8) / 127.0
@@ -83,10 +82,10 @@ def make_quantized_forward(cfg, attention_fn: Callable | None = None) -> Callabl
     from vitiq.models import embeddings as emb
     from vitiq.models.layers import layer_norm_apply, linear_apply
     from vitiq.ops.attention import scaled_dot_product_attention
-    from vitiq.ops.numerics import TPU
+    from vitiq.ops.numerics import BF16
 
     cfg.validate()
-    policy = TPU
+    policy = BF16
     if attention_fn is None:
         attention_fn = scaled_dot_product_attention
 
@@ -110,8 +109,6 @@ def make_quantized_forward(cfg, attention_fn: Callable | None = None) -> Callabl
         return layer_norm_apply(qlayer["norm2"], y + x)
 
     def forward(qparams, src):
-        import os
-
         enc = qparams["encoder"]
         if cfg.arm == "vit":
             tokens = emb.fold_patches_2d(src, cfg.patch_size)
@@ -125,29 +122,8 @@ def make_quantized_forward(cfg, attention_fn: Callable | None = None) -> Callabl
                                    (x.shape[0], 1, x.shape[2]))
             x = jnp.concatenate([cls, x], axis=1)
         x = emb.add_positional_encoding(x, cfg.num_tokens)
-        # on TPU the layers run as fused int8-GEMM Pallas kernels; the v3
-        # int8 stack (W8A8 GEMMs + bf16 v3 attention + CLS-only last layer)
-        # supersedes the per-layer v1 kernel (VITIQ_FUSED_VERSION=v1 keeps it)
-        use_fused = (jax.default_backend() == "tpu"
-                     and os.environ.get("VITIQ_NO_FUSED_LAYER") != "1")
-        if use_fused:
-            x = x.astype(jnp.bfloat16)
-            if os.environ.get("VITIQ_FUSED_VERSION") == "v1":
-                from vitiq.ops.pallas.fused_encoder_layer import fused_encoder_layer_int8
-
-                for qlayer in enc["layers"]:
-                    x = fused_encoder_layer_int8(x, qlayer, cfg.n_head)
-            else:
-                from vitiq.ops.pallas.fused_encoder_layer import (
-                    fused_encoder_layer_v3_int8_stack,
-                )
-
-                cls_only = (cfg.arm == "vit" or cfg.use_cls_token) and                     os.environ.get("VITIQ_CLS_ONLY", "1") != "0"
-                x = fused_encoder_layer_v3_int8_stack(
-                    x, enc["layers"], cfg.n_head, cls_only=cls_only)
-        else:
-            for qlayer in enc["layers"]:
-                x = encoder_layer(qlayer, x)
+        for qlayer in enc["layers"]:
+            x = encoder_layer(qlayer, x)
         if cfg.arm == "vit":
             feat = x[:, 0]
         else:

@@ -1,11 +1,13 @@
 """Device mesh and sharding rules.
 
 The reference is strictly single-device (no DDP/FSDP/NCCL anywhere — SURVEY.md
-§2.9); its only parallel axis is the batch. The TPU-native equivalent is a 2-D
+§2.9); its only parallel axis is the batch. Here it is a 2-D
 ``jax.sharding.Mesh`` with axes:
 
-  * ``data``  — batch dimension sharded across chips; gradient all-reduce rides
-    ICI implicitly through jit's partitioner (psum of the mean loss gradient).
+  * ``data``  — batch dimension sharded across devices; the gradient
+    all-reduce is inserted by jit's partitioner (psum of the mean loss
+    gradient). The cards of one host are joined all to all, so the mesh has
+    one tier.
   * ``model`` — megatron-style tensor parallelism for the attention/FFN
     projections: QKV and FFN-in kernels column-sharded (head / hidden axis),
     output projections row-sharded so each layer needs exactly one
@@ -46,60 +48,13 @@ def make_mesh(
     return Mesh(mesh_devices, ("data", "model"))
 
 
-def make_multislice_mesh(
-    dcn_data: int,
-    ici_data: Optional[int] = None,
-    model: int = 1,
-) -> Mesh:
-    """Multi-slice mesh: batch sharded over BOTH the cross-slice DCN axis and
-    the within-slice ICI axis, model parallelism confined within a slice.
-
-    Uses `mesh_utils.create_hybrid_device_mesh` so the slower DCN network only
-    carries the once-per-step gradient all-reduce across slices while ICI
-    carries everything else — the standard multi-slice recipe. Axes are
-    ("dcn_data", "data", "model") and `batch_sharding`/`param_shardings`
-    treat ("dcn_data", "data") jointly as the batch axis.
-
-    On real multi-slice hardware (devices carry `slice_index`) the hybrid
-    mesh builder places same-slice devices together so only the once-per-step
-    gradient reduction crosses DCN. Devices WITHOUT slice topology (virtual
-    CPU meshes, single-slice dev boxes) fall back to a plain reshape with
-    identical axis bookkeeping — the axis names, shapes and
-    batch_sharding/P(("dcn_data","data")) behavior are the same either way,
-    so multi-slice code paths are testable on the 8-device CPU mesh.
-    """
-    devices = jax.devices()
-    if ici_data is None:
-        ici_data = len(devices) // (dcn_data * model)
-    if ici_data < 1:
-        raise ValueError(
-            f"multislice mesh dcn_data={dcn_data} x model={model} leaves no "
-            f"devices for the ICI data axis ({len(devices)} devices total)")
-    n = dcn_data * ici_data * model
-    if n > len(devices):
-        raise ValueError(
-            f"multislice mesh {dcn_data}x{ici_data}x{model} needs {n} devices, "
-            f"have {len(devices)}")
-    if all(hasattr(d, "slice_index") for d in devices):
-        mesh_devices = mesh_utils.create_hybrid_device_mesh(
-            mesh_shape=(1, ici_data, model),
-            dcn_mesh_shape=(dcn_data, 1, 1),
-            devices=devices,
-        )
-    else:
-        mesh_devices = np.array(devices[:n]).reshape(dcn_data, ici_data, model)
-    return Mesh(mesh_devices, ("dcn_data", "data", "model"))
-
-
 def ambient_mesh() -> Optional[Mesh]:
     """The Mesh installed by an enclosing ``with mesh:`` block, or None.
 
-    The fused Pallas kernels consult this at trace time: under a
-    multi-device mesh they must run per-shard inside ``jax.shard_map``
-    (XLA's SPMD partitioner cannot split a pallas_call on its own), and
-    under tensor parallelism (model axis > 1) they must not run at all —
-    they consume full [D, *] weight tensors (TP policy: the XLA path owns
-    model-sharded execution; see vitiq/models/encoder.py)."""
+    The Triton attention kernel consults this at trace time: under a
+    multi-device mesh it must run per shard inside ``jax.shard_map``
+    (XLA's SPMD partitioner cannot split a pallas_call on its own; see
+    vitiq/ops/pallas/flash_attention.py)."""
     try:
         from jax._src import mesh as mesh_lib
 
@@ -107,28 +62,27 @@ def ambient_mesh() -> Optional[Mesh]:
         return None if m.empty else m
     except (ImportError, AttributeError):
         # private jax._src API moved (JAX upgrade): returning None would
-        # SILENTLY disable the shard_map wrapping and the TP guard, so make
-        # the breakage visible once rather than eat it
+        # SILENTLY disable the shard_map wrapping, so make the breakage
+        # visible once rather than eat it
         import warnings
 
         warnings.warn(
             "vitiq.parallel.mesh.ambient_mesh: jax internal thread_resources "
-            "API unavailable in this JAX version — fused kernels will not "
-            "see ambient meshes (multi-chip fused paths degrade)",
+            "API unavailable in this JAX version — the attention kernel "
+            "will not see ambient meshes",
             stacklevel=2)
         return None
 
 
 def mesh_data_axes(mesh: Mesh) -> tuple:
-    """Axis names carrying the batch dimension with size > 1."""
+    """Axis names carrying the batch dimension with size > 1 (('data',) or
+    ())."""
     return tuple(a for a in mesh.axis_names
                  if a != "model" and mesh.shape[a] > 1)
 
 
 def batch_sharding(mesh: Mesh) -> NamedSharding:
-    """Leading (batch) axis split over the data axes; feature axes replicated."""
-    if "dcn_data" in mesh.axis_names:
-        return NamedSharding(mesh, P(("dcn_data", "data")))
+    """Leading (batch) axis split over 'data'; feature axes replicated."""
     return NamedSharding(mesh, P("data"))
 
 
@@ -140,8 +94,6 @@ def scan_batch_sharding(mesh: Mesh) -> NamedSharding:
     batch_sharding. Scan-of-sharded-steps composes with the partitioner: the
     per-step collectives (grad psums) are identical to the per-dispatch
     path's, just issued from inside one device call."""
-    if "dcn_data" in mesh.axis_names:
-        return NamedSharding(mesh, P(None, ("dcn_data", "data")))
     return NamedSharding(mesh, P(None, "data"))
 
 
@@ -169,8 +121,7 @@ def process_local_rows(mesh: Mesh, global_batch: int,
     On a multi-host mesh each process must feed ONLY the batch rows its
     addressable devices hold; this derives that row range from the batch
     sharding's device→index map rather than assuming a layout, so it stays
-    correct for dp×tp meshes (model-axis devices replicate the same rows)
-    and multislice ("dcn_data","data") meshes alike.
+    correct for dp×tp meshes (model-axis devices replicate the same rows).
 
     `process_of_device` maps a device to its process index (defaults to
     ``d.process_index``); tests inject a fake mapping to exercise the

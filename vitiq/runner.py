@@ -56,18 +56,21 @@ def build_preprocess(cfg: ExperimentConfig, stats: Dict[str, float]) -> Callable
                                                   hybrid_window=hyb))
 
 
-def build_forward_and_preprocess(cfg: ExperimentConfig, stats: Dict[str, float]):
+def build_forward_and_preprocess(cfg: ExperimentConfig, stats: Dict[str, float],
+                                 attention_fn=None):
     """(forward, preprocess) for the experiment. When the fused raw
-    embedding applies (iq features, sps=1, VITIQ_FUSED_EMBED gate —
+    embedding applies (iq features, sps=1, the gate in
     vitiq/models/raw_embed.py), preprocessing folds into the embedding
     GEMM: the forward consumes raw [B, L, 2] frames and preprocess is the
-    identity. Every other mode keeps the preprocess -> forward split."""
+    identity. Every other mode keeps the preprocess -> forward split.
+    `attention_fn` overrides the numerics' default attention (make_forward)."""
     from vitiq.models.raw_embed import fused_raw_embed_enabled
 
     if (cfg.data.sps <= 1 and cfg.data.features == "iq"
             and fused_raw_embed_enabled(cfg.model)):
-        return make_forward(cfg.model, raw_stats=stats), (lambda x: x)
-    return make_forward(cfg.model), build_preprocess(cfg, stats)
+        return (make_forward(cfg.model, attention_fn, raw_stats=stats),
+                (lambda x: x))
+    return make_forward(cfg.model, attention_fn), build_preprocess(cfg, stats)
 
 
 def _build_arm_preprocess(cfg: ExperimentConfig, stats: Dict[str, float]) -> Callable:
@@ -303,12 +306,13 @@ def run_training(
         # run holds the genuinely best weights — keep it and evaluate it
         best_params = load_params(best_path, result.state.params)
 
-    try:
-        from vitiq.eval.plots import plot_training_history
+    from vitiq.eval.plots import plot_training_history, plotting_available
+
+    if plotting_available():
         plot_training_history(result.history,
                               log_dir / f"{cfg.experiment_name}_training_history.png")
-    except Exception as e:  # plotting must never kill a finished run
-        print(f"warning: history plot failed: {e}")
+    else:
+        print("matplotlib is not installed: training-history plot skipped")
 
     summary: Dict = {
         "experiment_dir": str(exp_dir),
@@ -420,8 +424,8 @@ def run_evaluation(
 
     prefix = dataset
     if int8:
-        # evaluate through the int8 W8A8 serving path (quantized GEMMs,
-        # fused int8 layers on TPU) — validates deployment accuracy
+        # evaluate through the int8 W8A8 serving path (quantized GEMMs) —
+        # validates deployment accuracy
         from vitiq.ops.quant import make_quantized_forward, quantize_params_int8
 
         params = quantize_params_int8(params)

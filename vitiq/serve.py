@@ -2,14 +2,14 @@
 
 The reference deploys by shipping a checkpoint plus the whole training tree
 (`ViT/training/evaluate.py:42-87` rebuilds the model from config at load
-time). The TPU-native deployment unit is instead the COMPILED program:
+time). Here the deployment unit is instead the COMPILED program:
 `jax.export` serializes the jitted serving function — fused preprocess +
-encoder (incl. Pallas kernels when exported on TPU) + head, with the
-trained weights baked in as constants — to portable StableHLO bytes. A
+encoder (incl. the Triton attention kernel when exported for CUDA) + head,
+with the trained weights baked in as constants — to StableHLO bytes. A
 consumer process deserializes and calls it without vitiq model code, and
-XLA recompiles the portable program for its local topology.
+XLA recompiles the program for its local device.
 
-TPU serving is fixed-shape, so an artifact holds one entry per batch-size
+Serving is fixed-shape, so an artifact holds one entry per batch-size
 BUCKET (e.g. 256 for latency, 8192 for throughput). `ServingArtifact.run`
 pads a ragged batch up to the smallest admitting bucket and slices the
 result back — zero-padded frames are independent rows (no batch-coupled
@@ -19,10 +19,16 @@ Artifact layout (a directory):
     manifest.json               format/version, buckets, shapes, platforms
     config.json                 full ExperimentConfig (round-trippable)
     stats.json                  normalization stats the export baked in
-    serving_b{B}.jaxexport      serialized Exported per bucket
+    serving_b{B}.mlirbc         the exported StableHLO module per bucket
+
+Each bucket's program is stored as its StableHLO bytecode plus the few
+fields of `jax.export.Exported` that calling it needs (in the manifest);
+`load` rebuilds the Exported around the bytes. This keeps the artifact free
+of jax.export's own serialization, which needs the `flatbuffers` package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
@@ -34,7 +40,9 @@ from jax import export as jax_export
 
 from vitiq.config import ExperimentConfig
 
-_FORMAT = "vitiq-serving/1"
+_FORMAT = "vitiq-serving/2"
+# the custom-call target a Pallas Triton kernel lowers to
+TRITON_CUSTOM_CALL = "__gpu$xla.gpu.triton"
 
 
 def build_serving_fn(cfg: ExperimentConfig, params, stats: Dict[str, float]):
@@ -65,10 +73,11 @@ def export_serving(
 ) -> Path:
     """Export one serialized serving program per batch bucket into `path`.
 
-    `platforms` defaults to the current backend; pass e.g. ["tpu"] (or
-    ["cpu", "tpu"]) to pin the lowering targets. Pallas fused kernels ride
-    along as tpu custom calls, which `jax.export` gates behind an explicit
-    safety acknowledgement — enabled here, since the kernels are our own.
+    `platforms` defaults to the current backend; pass e.g. ["cuda"] (or
+    ["cpu", "cuda"]) to pin the lowering targets. The Triton attention
+    kernel rides along as a custom call, which `jax.export` gates behind an
+    explicit safety acknowledgement — given here, since the kernel is our
+    own. The manifest records the platforms the export lowered for.
     """
     out = Path(path)
     out.mkdir(parents=True, exist_ok=True)
@@ -77,19 +86,26 @@ def export_serving(
         raise ValueError(f"batch_sizes must be positive, got {batch_sizes}")
     frame_len = cfg.data.frame_len
     serve = jax.jit(build_serving_fn(cfg, params, stats))
-    disabled = [jax_export.DisabledSafetyCheck.custom_call("tpu_custom_call"),
-                jax_export.DisabledSafetyCheck.custom_call("Sharding")]
-    kwargs = {"disabled_checks": disabled}
+    kwargs = {"disabled_checks": [
+        jax_export.DisabledSafetyCheck.custom_call(TRITON_CUSTOM_CALL)]}
     if platforms is not None:
         kwargs["platforms"] = list(platforms)
     entries = {}
+    lowered_for = None
     for b in batch_sizes:
         spec = jax.ShapeDtypeStruct((b, frame_len, 2), jnp.float32)
         exported = jax_export.export(serve, **kwargs)(spec)
-        blob = exported.serialize()
-        name = f"serving_b{b}.jaxexport"
+        lowered_for = list(exported.platforms)
+        blob = exported.mlir_module_serialized
+        name = f"serving_b{b}.mlirbc"
         (out / name).write_bytes(blob)
-        entries[str(b)] = {"file": name, "bytes": len(blob)}
+        entries[str(b)] = {
+            "file": name, "bytes": len(blob),
+            "fun_name": exported.fun_name,
+            "calling_convention_version": exported.calling_convention_version,
+            "module_kept_var_idx": list(exported.module_kept_var_idx),
+            "uses_global_constants": exported.uses_global_constants,
+        }
     manifest = {
         "format": _FORMAT,
         "arm": cfg.model.arm,
@@ -97,8 +113,7 @@ def export_serving(
         "frame_len": frame_len,
         "input_spec": [None, frame_len, 2],
         "batch_sizes": batch_sizes,
-        "platforms": list(platforms) if platforms is not None
-        else [jax.default_backend()],
+        "platforms": lowered_for,
         "entries": entries,
     }
     (out / "manifest.json").write_text(json.dumps(manifest, indent=2))
@@ -129,10 +144,12 @@ class ServingArtifact:
             raise ValueError(
                 f"{root} is not a vitiq serving artifact "
                 f"(format={manifest.get('format')!r}, expected {_FORMAT!r})")
-        programs = {}
-        for b, entry in manifest["entries"].items():
-            blob = (root / entry["file"]).read_bytes()
-            programs[int(b)] = jax_export.deserialize(bytearray(blob))
+        programs = {
+            int(b): _rebuild_exported(
+                entry, (root / entry["file"]).read_bytes(),
+                (int(b), manifest["frame_len"], 2), manifest["num_classes"],
+                manifest["platforms"])
+            for b, entry in manifest["entries"].items()}
         return cls(manifest, programs, root)
 
     @property
@@ -166,6 +183,25 @@ class ServingArtifact:
 
     def predict(self, x) -> np.ndarray:
         return np.asarray(jnp.argmax(self.run(x), axis=-1))
+
+
+def _rebuild_exported(entry: Dict, module: bytes, in_shape, num_classes: int,
+                      platforms) -> "jax_export.Exported":
+    """An Exported that calls the stored StableHLO `module`: a template
+    exported here with the same signature ([B, L, 2] f32 -> [B, K] f32,
+    unsharded) supplies the calling structure, and the stored fields
+    replace its program."""
+    template = jax_export.export(jax.jit(
+        lambda x: jnp.zeros((in_shape[0], num_classes), jnp.float32) + x[0, 0, 0]))(
+            jax.ShapeDtypeStruct(in_shape, jnp.float32))
+    return dataclasses.replace(
+        template,
+        fun_name=entry["fun_name"],
+        platforms=tuple(platforms),
+        mlir_module_serialized=module,
+        calling_convention_version=entry["calling_convention_version"],
+        module_kept_var_idx=tuple(entry["module_kept_var_idx"]),
+        uses_global_constants=entry["uses_global_constants"])
 
 
 def export_from_experiment(

@@ -39,10 +39,9 @@ def _fused_clip_adamw(cfg: TrainConfig, learning_rate) -> optax.GradientTransfor
     Mathematically identical to optax.chain(clip_by_global_norm, adamw)
     over the same tree (the global norm is the norm of the concatenation;
     AdamW is elementwise), but ~10 vector ops instead of ~8 ops PER LEAF.
-    Round-3ap probes measured the per-leaf chain at ~2.3 ms/step of pure
-    op-dispatch on v5e — independent of parameter count (vit_tiny 200K and
-    seg-64 mp 1.2M params cost the same) — i.e. the optimizer was
-    op-count-bound, not FLOP-bound. The flat form removes that wall."""
+    The per-leaf chain's cost is op count, independent of parameter count
+    (vit_tiny's 200K and seg-64 mp's 1.2M params cost the same); the flat
+    form removes that."""
     from jax.flatten_util import ravel_pytree
 
     def init(params):
@@ -73,30 +72,12 @@ def _fused_clip_adamw(cfg: TrainConfig, learning_rate) -> optax.GradientTransfor
 
 
 def make_optimizer(cfg: TrainConfig) -> optax.GradientTransformation:
-    """clip-by-global-norm -> AdamW, with injectable learning_rate.
-
-    Default is the flat fused form (VITIQ_FUSED_OPT=0 restores the per-leaf
-    optax chain — checkpointed opt_states are structure-compatible only
-    within one choice)."""
-    import os
-
-    fused = os.environ.get("VITIQ_FUSED_OPT", "1") != "0"
-
-    def build(learning_rate):
-        if fused:
-            return _fused_clip_adamw(cfg, learning_rate)
-        return optax.chain(
-            optax.clip_by_global_norm(cfg.grad_clip_max_norm),
-            optax.adamw(
-                learning_rate=learning_rate,
-                b1=cfg.adam_b1,
-                b2=cfg.adam_b2,
-                eps=cfg.adam_eps,
-                weight_decay=cfg.weight_decay,
-            ),
-        )
-
-    return optax.inject_hyperparams(build)(learning_rate=cfg.learning_rate)
+    """clip-by-global-norm -> AdamW in the flat fused form, with injectable
+    learning_rate (tests/test_fused_opt.py pins it to the per-leaf optax
+    chain)."""
+    return optax.inject_hyperparams(
+        lambda learning_rate: _fused_clip_adamw(cfg, learning_rate))(
+            learning_rate=cfg.learning_rate)
 
 
 def create_train_state(params, cfg: TrainConfig) -> TrainState:

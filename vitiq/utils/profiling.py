@@ -2,7 +2,7 @@
 
 The reference's only observability is tqdm bars and wall-clock epoch timers
 (ref: ViT/training/train.py:448-479, `format_time` utils.py:681-700). The
-TPU-native replacements:
+replacements:
 
   * StepTimer — dispatch-aware step timing: jax dispatch is async, so a
     naive `time.time()` around a step measures enqueue latency, not compute.
@@ -77,7 +77,7 @@ class StepTimer:
 
 
 @contextlib.contextmanager
-def trace_context(log_dir: str = "/tmp/vitiq_trace", enabled: bool = True):
+def trace_context(log_dir: str = "result/trace", enabled: bool = True):
     """jax.profiler trace for the wrapped region; view with XProf/Perfetto."""
     if not enabled:
         yield
